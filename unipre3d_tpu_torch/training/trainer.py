@@ -1,0 +1,261 @@
+"""Training: the object-pretraining step.
+
+Port of the object level and dense route of
+unipre3d_tpu/training/trainer.py: backbone forward (frozen VAE under
+``torch.no_grad``), all B*V supervision renders in one dense splat launch,
+focal-L2, then AdamW(eps 1e-15) with StepLR, clip 1.0, the NaN skip and
+EMA. The optimizer is written out to reproduce the optax chain of the JAX
+package exactly (``AdamW`` below); the step updates the model, optimizer
+and EMA in place (torch idiom; the JAX step returns a new state).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Dict, List, Tuple
+
+import torch
+from torch import nn
+from torch.profiler import record_function
+
+from unipre3d_tpu_torch import resolve_device
+from unipre3d_tpu_torch.models.gaussian_predictor import (
+    GaussianSplatPredictor, build_predictor)
+from unipre3d_tpu_torch.ops.rasterizer.preprocess import preprocess_gaussians
+from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
+    rasterize_dense_batched
+from unipre3d_tpu_torch.utils import losses as loss_lib
+
+DENSE_MAX_N = 4096   # the dense route serves up to this many gaussians
+
+
+def split_frozen(model: nn.Module):
+    """(trainable, frozen) named parameters: the SD-VAE (``image_network``)
+    is frozen, out of autograd and of the optimizer."""
+    trainable, frozen = [], []
+    for name, p in model.named_parameters():
+        (frozen if name.startswith("image_network.") else trainable).append(
+            (name, p))
+    return trainable, frozen
+
+
+class AdamW:
+    """optax ``apply_if_finite(chain(clip_by_global_norm(1.0),
+    adamw(exponential_decay(staircase), b1, b2, eps=1e-15,
+    weight_decay=0.01)))``, written out:
+
+    * clip: ``g * max_norm / |g|`` only when ``|g| >= max_norm`` (no +1e-6,
+      unlike ``torch.nn.utils.clip_grad_norm_``);
+    * AdamW decays every trainable tensor, biases and norms included;
+    * a non-finite gradient skips the update and leaves the Adam moments,
+      the Adam count and the schedule where they were.
+    """
+
+    def __init__(self, params: List[torch.Tensor], base_lr: float,
+                 step_lr: int, lr_gamma: float, betas=(0.9, 0.999),
+                 eps: float = 1e-15, weight_decay: float = 0.01,
+                 max_norm: float = 1.0):
+        self.params = params
+        self.base_lr, self.step_lr, self.lr_gamma = base_lr, step_lr, lr_gamma
+        self.b1, self.b2 = float(betas[0]), float(betas[1])
+        self.eps, self.weight_decay, self.max_norm = eps, weight_decay, max_norm
+        self.mu = [torch.zeros_like(p) for p in params]
+        self.nu = [torch.zeros_like(p) for p in params]
+        self.count = 0   # applied updates (the schedule's step too)
+
+    def lr(self) -> float:
+        return self.base_lr * self.lr_gamma ** (self.count // self.step_lr)
+
+    @torch.no_grad()
+    def update(self, grads: List[torch.Tensor], grad_norm: torch.Tensor) -> bool:
+        """Apply one update; False (and no change) if a gradient is not
+        finite."""
+        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        if not bool(finite):
+            return False
+        norm = float(grad_norm)
+        if norm >= self.max_norm:
+            grads = torch._foreach_mul(torch._foreach_div(grads, norm),
+                                       self.max_norm)
+        b1, b2, k = self.b1, self.b2, self.count + 1
+        torch._foreach_mul_(self.mu, b1)
+        torch._foreach_add_(self.mu, torch._foreach_mul(grads, 1.0 - b1))
+        torch._foreach_mul_(self.nu, b2)
+        torch._foreach_add_(self.nu, torch._foreach_mul(
+            torch._foreach_mul(grads, grads), 1.0 - b2))
+        mu_hat = torch._foreach_div(self.mu, 1.0 - b1 ** k)
+        nu_hat = torch._foreach_div(self.nu, 1.0 - b2 ** k)
+        den = torch._foreach_add(torch._foreach_sqrt(nu_hat), self.eps)
+        upd = torch._foreach_div(mu_hat, den)
+        torch._foreach_add_(upd, torch._foreach_mul(self.params,
+                                                    self.weight_decay))
+        torch._foreach_add_(self.params, torch._foreach_mul(upd, -self.lr()))
+        self.count += 1
+        return True
+
+
+def make_optimizer(cfg, params: List[torch.Tensor]) -> AdamW:
+    return AdamW(params, base_lr=float(cfg.opt.base_lr),
+                 step_lr=int(cfg.opt.step_lr),
+                 lr_gamma=float(cfg.opt.lr_gamma),
+                 betas=cfg.opt.get("betas", [0.9, 0.999]))
+
+
+def bg_color_of(cfg) -> List[float]:
+    return [1.0, 1.0, 1.0] if cfg.data.white_background else [0.0, 0.0, 0.0]
+
+
+def _image_hw(cfg) -> Tuple[int, int]:
+    if "training_resolution" in cfg.data:
+        res = int(cfg.data.training_resolution)
+        return res, res
+    return int(cfg.data.training_height), int(cfg.data.training_width)
+
+
+def render_supervision_views(gaussians: Dict[str, torch.Tensor], batch,
+                             cfg, bg_color) -> torch.Tensor:
+    """Render the supervision views (after the ``input_images``
+    conditioning views) of every batch element in one dense splat launch
+    -> [B, V_sup, 3, H, W]."""
+    n_in = int(cfg.data.input_images)
+    img_h, img_w = _image_hw(cfg)
+    tanfov = math.tan(float(cfg.data.fov) * math.pi / 360)
+    N = gaussians["xyz"].shape[1]
+    impl = str(cfg.tpu.get("raster_impl_train", "auto")) if "tpu" in cfg \
+        else "auto"
+    if not (impl == "pallas_dense" or (impl == "auto" and N <= DENSE_MAX_N)):
+        raise NotImplementedError(
+            f"raster_impl_train={impl} with {N} gaussians: only the dense "
+            "route is ported (large-N renderers: ROADMAP.md queue A, slice 3)")
+    shs = torch.cat([gaussians["features_dc"], gaussians["features_rest"]],
+                    dim=2)
+    mask = gaussians.get("mask")
+    # gaussians [B, 1, N, ...] broadcast against cameras [B, V, ...]
+    pg = preprocess_gaussians(
+        gaussians["xyz"][:, None], gaussians["opacity"][:, None, :, 0],
+        gaussians["scaling"][:, None], gaussians["rotation"][:, None],
+        shs[:, None], batch["world_view_transforms"][:, n_in:],
+        batch["full_proj_transforms"][:, n_in:],
+        batch["camera_centers"][:, n_in:], img_h, img_w, tanfov, tanfov,
+        int(cfg.model.max_sh_degree),
+        gaussian_mask=None if mask is None else mask[:, None])
+    B, Vs = pg.depth.shape[:2]
+    flat = [t.expand(B, Vs, *t.shape[2:]).reshape(B * Vs, *t.shape[2:])
+            for t in (pg.mean2d, pg.conic, pg.color, pg.opacity, pg.depth,
+                      pg.valid)]
+    imgs = rasterize_dense_batched(*flat, bg_color, img_h, img_w)
+    return imgs.reshape(B, Vs, 3, img_h, img_w)
+
+
+def compute_loss(rendered, gt, cfg, bg_color):
+    """Photometric loss; rendered/gt [B, V, 3, H, W]."""
+    r = rendered.reshape(-1, *rendered.shape[2:])
+    g = gt.reshape(-1, *gt.shape[2:])
+    kind = cfg.opt.loss
+    if kind == "focal_l2":
+        main = loss_lib.focal_l2_loss(
+            r, g, bg_color, float(cfg.opt.non_bg_color_loss_rate),
+            float(cfg.opt.bg_color_loss_rate))
+    elif kind == "l1":
+        main = loss_lib.l1_loss(r, g)
+    else:
+        main = loss_lib.l2_loss(r, g)
+    return main, {"loss": main, "psnr": loss_lib.psnr(r, g)}
+
+
+def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
+    """Random init with flax's defaults: Dense/Conv kernels lecun-normal
+    (truncated normal, variance 1/fan_in), biases 0, norms (1, 0), the CLS
+    token 0 and the CLS position N(0, 1). Draws come from ``generator``."""
+    with torch.no_grad():
+        for name, mod in model.named_modules():
+            if isinstance(mod, (nn.Linear, nn.Conv2d)):
+                w = mod.weight
+                fan_in = w[0].numel()
+                std = math.sqrt(1.0 / fan_in) / 0.87962566103423978
+                w.copy_(torch.nn.init.trunc_normal_(
+                    torch.empty(w.shape), std=std, a=-2 * std, b=2 * std,
+                    generator=generator))
+                if mod.bias is not None:
+                    mod.bias.zero_()
+        for name, p in model.named_parameters():
+            if name.endswith("cls_pos"):
+                p.copy_(torch.randn(p.shape, generator=generator))
+
+
+@dataclass
+class TrainState:
+    step: int
+    optimizer: AdamW
+    ema: Dict[str, torch.Tensor]    # EMA of the trainable parameters
+    generator: torch.Generator      # DropPath draws
+
+
+def create_train_state(cfg, device=None, seed: int = 0,
+                       state_dict=None) -> Tuple[GaussianSplatPredictor,
+                                                 TrainState]:
+    """Model (random init from ``seed``, or ``state_dict``), optimizer over
+    the trainable parameters, EMA copy and DropPath generator."""
+    dev = resolve_device(device)
+    model = build_predictor(cfg)
+    init_like_flax(model, torch.Generator().manual_seed(seed))
+    if state_dict is not None:
+        model.load_state_dict(state_dict)
+    model.to(dev)
+    trainable, _ = split_frozen(model)
+    opt = make_optimizer(cfg, [p for _, p in trainable])
+    ema = {n: p.detach().clone() for n, p in trainable}
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    return model, TrainState(step=0, optimizer=opt, ema=ema, generator=gen)
+
+
+def make_train_step(cfg, model: GaussianSplatPredictor):
+    """-> ``train_step(state, batch) -> metrics`` (updates in place)."""
+    bg_color = bg_color_of(cfg)
+    n_in = int(cfg.data.input_images)
+    ema_cfg = cfg.opt.ema
+    use_ema = bool(ema_cfg.use)
+    ema_beta = float(ema_cfg.beta)
+    ema_every = int(ema_cfg.update_every)
+    ema_after = int(ema_cfg.update_after_step)
+    trainable, _ = split_frozen(model)
+    names = [n for n, _ in trainable]
+    params = [p for _, p in trainable]
+
+    def train_step(state: TrainState, batch) -> Dict[str, float]:
+        # the named ranges label a torch.profiler trace of the step
+        # (tools/profile_torch_step.py); outside a profiler they cost a
+        # few microseconds
+        model.train()
+        with record_function("step/forward"):
+            gaussians = model(batch["point_cloud"],
+                              batch["gt_images"][:, :n_in],
+                              batch["view_to_world_transforms"][:, :n_in],
+                              generator=state.generator)
+        with record_function("step/render"):
+            rendered = render_supervision_views(gaussians, batch, cfg,
+                                                bg_color)
+            loss, metrics = compute_loss(
+                rendered, batch["gt_images"][:, n_in:], cfg, bg_color)
+        with record_function("step/backward"):
+            grads = torch.autograd.grad(loss, params)
+        with record_function("step/optimizer"):
+            # optax.global_norm: sqrt of the sum of every squared entry
+            grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
+            state.optimizer.update(list(grads), grad_norm)
+            state.step += 1
+            if use_ema:
+                with torch.no_grad():
+                    if state.step <= ema_after:
+                        for n, p in zip(names, params):
+                            state.ema[n].copy_(p)
+                    elif state.step % ema_every == 0:
+                        for n, p in zip(names, params):
+                            state.ema[n].mul_(ema_beta).add_(
+                                p * (1.0 - ema_beta))
+        metrics = {k: float(v.detach()) for k, v in metrics.items()}
+        metrics["grad_norm"] = float(grad_norm)
+        return metrics
+
+    return train_step
