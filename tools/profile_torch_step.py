@@ -1,17 +1,20 @@
 #!/usr/bin/env python3
-"""Profile the PyTorch port's object-pretraining step on one CUDA card.
+"""Profile one of the PyTorch port's pretraining steps on one CUDA card.
 
-    python3 tools/profile_torch_step.py [--tf32]
+    python3 tools/profile_torch_step.py [--tf32] [--scene]
 
-Builds ``transformer_pretraining`` at full width (random weights from seed
-42) on a random batch of the real shapes (1024 points, 1 + 4 views at
-128²), runs two warm-up steps, then times three steps with the host
-clock around synchronized steps and traces them with ``torch.profiler``.
-Prints the card's name and power limit, the step times, the device time
-of the step's named ranges (``step/forward``, ``predictor/frozen_vae``,
-``step/render``, ``step/backward``, ``step/optimizer``), the device busy
-share (sum of kernel time over wall time) and the top kernels by device
-time.
+Without ``--scene``: ``transformer_pretraining`` at full width (random
+weights from seed 42) on a random batch of the real shapes (batch 32, 1024
+points, 1 + 4 views at 128²). With ``--scene``: ``sparseunet_pretraining``
+at full width on the binned splat route (batch 1, 80,000 point slots, 8 + 8
+views at 160x120) on one synthetic scene, its SparseUNet geometry built
+before each step and timed apart. Runs two warm-up steps, then times three
+steps with the host clock around synchronized steps and traces them with
+``torch.profiler``. Prints the card's name and power limit, the step times,
+the device time of the step's named ranges (``step/forward``,
+``predictor/frozen_vae``, ``predictor/sparseunet``, ``step/render``,
+``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
+time over wall time) and the top kernels by device time.
 TF32 is off unless ``--tf32`` (as in chip_smoke.py).
 """
 
@@ -32,12 +35,14 @@ BATCH = 32
 def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tf32", action="store_true")
+    ap.add_argument("--scene", action="store_true")
     args = ap.parse_args()
 
     import torch
     from torch.profiler import ProfilerActivity, profile
     from unipre3d_tpu_torch import resolve_device
-    from unipre3d_tpu_torch.data import batch_to, random_batch
+    from unipre3d_tpu_torch.data import (SyntheticSceneDataset, batch_to,
+                                         collate, random_batch)
     from unipre3d_tpu_torch.training import trainer
     from unipre3d_tpu_torch.training.config import load_config
 
@@ -47,13 +52,32 @@ def main():
     smi = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
-    print(f"[profile] {smi}; tf32={args.tf32} batch={BATCH}", flush=True)
-    cfg = load_config("transformer_pretraining",
-                      overrides=[f"opt.batch_size={BATCH}"])
+    if args.scene:
+        cfg = load_config("sparseunet_pretraining", overrides=[
+            "opt.batch_size=1", "data.pts_dataset_root=synthetic",
+            "tpu.raster_impl_train=pallas_binned"])
+        batch = batch_to(collate([SyntheticSceneDataset(
+            cfg, num_scenes=1, seed=0, device=dev)[0]]), dev)
+    else:
+        cfg = load_config("transformer_pretraining",
+                          overrides=[f"opt.batch_size={BATCH}"])
+        batch = batch_to(random_batch(cfg, BATCH, n_points=1024, n_views=5,
+                                      seed=0), dev)
+    print(f"[profile] {smi}; {cfg.model.backbone_type} tf32={args.tf32} "
+          f"batch={cfg.opt.batch_size}", flush=True)
     model, state = trainer.create_train_state(cfg, device=dev, seed=42)
     step = trainer.make_train_step(cfg, model)
-    batch = batch_to(random_batch(cfg, BATCH, n_points=1024, n_views=5,
-                                  seed=0), dev)
+    geometry_fn = trainer.make_geometry_fn(cfg, model)
+    geo_ms = []
+    if geometry_fn is not None:
+        for _ in range(3):
+            torch.cuda.synchronize()
+            t = time.perf_counter()
+            batch["geometry"] = geometry_fn(batch)
+            torch.cuda.synchronize()
+            geo_ms.append((time.perf_counter() - t) * 1e3)
+        print(f"[profile] geometry build ms {[round(t, 2) for t in geo_ms]}",
+              flush=True)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
@@ -75,8 +99,8 @@ def main():
                                  getattr(e, "cuda_time_total", 0.0))
     self_dev = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
-    ranges = ("step/forward", "predictor/frozen_vae", "step/render",
-              "step/backward", "step/optimizer")
+    ranges = ("step/forward", "predictor/frozen_vae", "predictor/sparseunet",
+              "step/render", "step/backward", "step/optimizer")
     for name in ranges:
         e = [x for x in events if x.key == name]
         if e:

@@ -1,8 +1,12 @@
 """Batching: the collate part of unipre3d_tpu/data/loader.py.
 
 Stacks numpy example dicts into batches in a seeded per-epoch order
-(``seed + epoch``), and moves a batch to a device as float32 tensors. The
-JAX loader's host sharding and background prefetch are not ported.
+(``seed + epoch``), and moves a batch to a device as float32 tensors
+(integer and boolean arrays keep their type). Nested dicts stack field by
+field: the scene schema's ``point_cloud`` dict (``coord``, ``grid_coord``,
+``feat``, ``mask``, ``min_coord``) becomes a dict of [B, ...] arrays beside
+``unprojected_coords`` [B, V, H, W, 4]. The JAX loader's host sharding and
+background prefetch are not ported.
 """
 
 from __future__ import annotations

@@ -8,6 +8,11 @@ edited source is rebuilt and an unchanged one is reused. Beside it lies
 nvcc's output (``.log``: ptxas' register, shared-memory and spill report).
 Nothing is built at import time: the CPU tests import every module of the
 package.
+
+Beside the build: ``CudaKernel`` (one C entry point with its launch count)
+and the two checks every kernel wrapper makes, ``use_kernel`` (a CUDA
+tensor launches the kernel, a CPU tensor takes the plain version, any
+other device raises) and ``check_tensor``.
 """
 
 from __future__ import annotations
@@ -77,3 +82,57 @@ def load(name: str) -> ctypes.CDLL:
 def build_log(name: str) -> str:
     """nvcc's output from the build of one source (written with it)."""
     return library_path(name).with_suffix(".log").read_text()
+
+
+class CudaKernel:
+    """One C entry point of a kernel library, with its launch count (a
+    plain int, incremented at each launch and nowhere else). Arguments:
+    ``n_ptr`` pointers, then ``n_int`` ints, then the stream (appended
+    here); the entry point returns ``cudaGetLastError()`` after its launch
+    and a non-zero code raises."""
+
+    def __init__(self, lib: str, fn: str, n_ptr: int, n_int: int):
+        self.lib_name, self.fn_name = lib, fn
+        self.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
+                         + [ctypes.c_void_p])
+        self.launches = 0
+        self._fn = None
+
+    def __call__(self, *args):
+        import torch
+        if self._fn is None:
+            fn = getattr(load(self.lib_name), self.fn_name)
+            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
+            self._fn = fn
+        stream = torch.cuda.current_stream().cuda_stream
+        err = self._fn(*args, ctypes.c_void_p(stream))
+        self.launches += 1
+        if err != 0:
+            raise RuntimeError(f"{self.fn_name} launch failed: CUDA error "
+                               f"{err}")
+
+
+def use_kernel(what: str, *tensors) -> bool:
+    """True: launch the CUDA kernel; False: take the plain version. Only
+    CPU tensors take the plain version; any other device raises."""
+    devs = {t.device for t in tensors}
+    if len(devs) != 1:
+        raise ValueError(f"tensors on several devices: {devs}")
+    dev = devs.pop()
+    if dev.type == "cpu":
+        return False
+    if dev.type != "cuda":
+        raise ValueError(f"the {what} runs on cuda or cpu, not {dev}")
+    return True
+
+
+def check_tensor(name, t, shape, dtype=None) -> None:
+    """Raise unless ``t`` is contiguous, of ``dtype`` (float32 by default)
+    and of ``shape``."""
+    import torch
+    dtype = torch.float32 if dtype is None else dtype
+    if t.dtype != dtype or not t.is_contiguous() or \
+            tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need a contiguous {dtype} tensor of shape "
+                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
+                         f"contiguous={t.is_contiguous()}")

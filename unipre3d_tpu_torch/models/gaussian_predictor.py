@@ -1,21 +1,25 @@
-"""Gaussian-splat predictor, object level: backbone -> per-point Gaussians.
+"""Gaussian-splat predictor: backbone -> per-point Gaussians.
 
-Port of the object path of unipre3d_tpu/models/gaussian_predictor.py: the
-transformer backbone with the frozen-VAE feature fusion emits 23 channels
-per point token, split ``[3, 1, 3, 4, 3, 9]`` into xyz offset / opacity /
-scale / rotation / SH-DC / SH-rest and activated into a renderable dict:
+Port of unipre3d_tpu/models/gaussian_predictor.py, object level (the
+transformer backbone with the object feature fusion) and scene level (the
+SparseUNet with PointFusion). The backbone emits 23 channels per point
+token, split ``[3, 1, 3, 4, 3, 9]`` into xyz offset / opacity / scale /
+rotation / SH-DC / SH-rest and activated into a renderable dict:
 
 * position ``tanh(x) * offset_scale + center``; opacity ``sigmoid``;
 * scale ``exp(clamp(x, -1, 20))``; rotation an L2-normalized quaternion
   with a safe norm (``sqrt(sum x^2 + 1e-12)``, floored at 1e-6).
 
 The VAE's ``decoder_block_3`` map is group-normalized (parameter-free,
-stop-gradient) over the whole map; the trainable per-channel affine and
-1x1 conv of ``ImageConv`` are applied after the fusion gather, to the N
-gathered rows only (``ImageConv.proj_rows``) — exact, since both are
-per-pixel linear maps of a map that carries no gradient.
+stop-gradient) over the whole map. At object level the trainable
+per-channel affine and 1x1 conv of ``ImageConv`` are applied after the
+fusion gather, to the N gathered rows only (``ImageConv.proj_rows``) —
+exact, since both are per-pixel linear maps of a map that carries no
+gradient. At scene level they run over the whole map (``ImageConv.forward``)
+and the PointFusion merge appends its pixels as extra voxels; the output
+dict then carries the validity ``mask`` of its padded rows.
 
-Other backbones and ``level=scene`` are later slices (ROADMAP.md, queue A).
+The other object backbones are a later slice (ROADMAP.md, queue A).
 """
 
 from __future__ import annotations
@@ -28,13 +32,15 @@ from torch import nn
 from torch.nn import functional as F
 from torch.profiler import record_function
 
+from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
 from unipre3d_tpu_torch.utils.camera import intrinsics_from_fov
 
-# feature_dim/fusion_dim of the object backbones this slice has
+# feature_dim/fusion_dim of the backbones the port has
 MODEL_CONFIGS = {
     "transformer": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
+    "sparseunet": {"feature_dim": 128, "fusion_dim": 32, "final_dim": 32},
 }
 VAE_FIRST_BLOCK_CHANNELS = 128
 
@@ -73,6 +79,12 @@ class ImageConv(nn.Module):
         self.layers_0 = GroupNormAffine(feat_ch)
         self.layers_1 = nn.Conv2d(feat_ch, out_dim, 1)
 
+    def forward(self, xn):
+        """Pre-normalized map [B, feat_ch, H, W] -> [B, out_dim, H, W]."""
+        y = self.layers_0.affine(xn.permute(0, 2, 3, 1))
+        w = self.layers_1.weight[:, :, 0, 0]
+        return F.linear(y, w, self.layers_1.bias).permute(0, 3, 1, 2)
+
     def proj_rows(self, xn_rows):
         """Pre-normalized rows [B, N, feat_ch] -> [B, N, out_dim]."""
         y = self.layers_0.affine(xn_rows)
@@ -106,15 +118,20 @@ class PointFeaturePredictor(nn.Module):
     def __init__(self, backbone_type: str, in_channels: int = 3,
                  backbone_overrides=None):
         super().__init__()
-        if backbone_type != "transformer":
+        if backbone_type == "transformer":
+            kw = dict(in_channels=in_channels, num_groups=128,
+                      encoder_dims=384, depth=16)
+            kw.update(backbone_overrides or {})
+            self.encoder = PointTransformerEncoder(**kw)
+            self.final = FinalHead(384, 128)
+        elif backbone_type == "sparseunet":
+            self.encoder = SpUNet(in_channels=6, num_classes=64,
+                                  **(backbone_overrides or {}))
+            self.final = FinalHead(64, 32)
+        else:
             raise NotImplementedError(
                 f"backbone {backbone_type!r} is not ported yet (ROADMAP.md "
                 f"queue A, slice 2: the other object backbones)")
-        kw = dict(in_channels=in_channels, num_groups=128, encoder_dims=384,
-                  depth=16)
-        kw.update(backbone_overrides or {})
-        self.encoder = PointTransformerEncoder(**kw)
-        self.final = FinalHead(384, 128)
 
     def forward(self, x, image_features=None, c2w=None, fusion_mlp=None,
                 intrinsic=None, image_proj=None, generator=None):
@@ -122,6 +139,14 @@ class PointFeaturePredictor(nn.Module):
             x, image_features=image_features, c2w=c2w, fusion_mlp=fusion_mlp,
             intrinsic=intrinsic, image_proj=image_proj, generator=generator)
         return self.final(feats), center
+
+    def forward_scene(self, data, image_features=None, unprojected=None,
+                      fusion_mlp=None, geometry=None):
+        """Scene-level forward: (23 channels [B, M', 23], coords [B, M', 3],
+        mask [B, M'])."""
+        feats, coords, mask = self.encoder.forward_point_fusion(
+            data, image_features, unprojected, fusion_mlp, geometry=geometry)
+        return self.final(feats), coords, mask
 
 
 class FusionMlp(nn.Module):
@@ -136,9 +161,9 @@ class FusionMlp(nn.Module):
 
 
 class GaussianSplatPredictor(nn.Module):
-    """Object-level predictor with the frozen SD-VAE as image encoder. The
-    VAE (``image_network``) runs under ``torch.no_grad`` and is kept out of
-    the optimizer (training/trainer.py:split_frozen)."""
+    """Object- or scene-level predictor with the frozen SD-VAE as image
+    encoder. The VAE (``image_network``) runs under ``torch.no_grad`` and
+    is kept out of the optimizer (training/trainer.py:split_frozen)."""
 
     def __init__(self, backbone_type: str = "transformer", in_channels: int = 3,
                  max_sh_degree: int = 1, isotropic: bool = False,
@@ -147,10 +172,9 @@ class GaussianSplatPredictor(nn.Module):
                  training_resolution: int = 128, backbone_overrides=None,
                  vae_overrides=None):
         super().__init__()
-        if level != "object":
-            raise NotImplementedError(
-                "level=scene is not ported yet (ROADMAP.md queue A, slice 3: "
-                "the scene path with SparseUNet)")
+        if level not in ("object", "scene"):
+            raise ValueError(f"unknown level {level!r}")
+        self.level = level
         self.max_sh_degree = max_sh_degree
         self.isotropic = isotropic
         self.offset_scale = offset_scale
@@ -165,9 +189,14 @@ class GaussianSplatPredictor(nn.Module):
             self.image_network.requires_grad_(False)
             feat_ch = tuple(vo.get("block_out_channels",
                                    (VAE_FIRST_BLOCK_CHANNELS,)))[0]
-            self.image_conv = ImageConv(mc["feature_dim"], feat_ch=feat_ch)
-            self.fusion_mlps = FusionMlp(mc["feature_dim"] * 2,
-                                         mc["fusion_dim"])
+            if level == "object":
+                self.image_conv = ImageConv(mc["feature_dim"], feat_ch=feat_ch)
+                self.fusion_mlps = FusionMlp(mc["feature_dim"] * 2,
+                                             mc["fusion_dim"])
+            else:
+                self.image_conv = ImageConv(mc["fusion_dim"], feat_ch=feat_ch)
+                self.fusion_mlps = SubMConvBlock(mc["fusion_dim"],
+                                                 mc["fusion_dim"])
         self.register_buffer("intrinsic", torch.from_numpy(np.asarray(
             intrinsics_from_fov(fov, training_resolution))), persistent=False)
 
@@ -179,9 +208,17 @@ class GaussianSplatPredictor(nn.Module):
             gn = self.image_conv.layers_0
             return group_normalize(feat, gn.num_groups, gn.epsilon)
 
-    def forward(self, point_cloud, image=None, c2w=None, generator=None):
-        """point_cloud [B, N, 3(+)], image [B, V, 3, H, W] (conditioning
-        views), c2w [B, V, 4, 4] -> dict of [B, V*G, ...] Gaussians."""
+    def forward(self, point_cloud, image=None, c2w=None, generator=None,
+                unprojected_coords=None, geometry=None):
+        """Object: point_cloud [B, N, 3(+)], image [B, V, 3, H, W]
+        (conditioning views), c2w [B, V, 4, 4] -> dict of [B, V*G, ...]
+        Gaussians. Scene: point_cloud the dict of the scene batch, image,
+        unprojected_coords [B, V, H, W, 4] and ``geometry`` (the batch's
+        precomputed SpUNetGeometry; None builds it) -> dict of [B, M', ...]
+        with ``mask``."""
+        if self.level == "scene":
+            return self._forward_scene(point_cloud, image,
+                                       unprojected_coords, geometry)
         if self.use_fusion:
             B, V = image.shape[:2]
             with record_function("predictor/frozen_vae"):
@@ -202,6 +239,23 @@ class GaussianSplatPredictor(nn.Module):
         if V > 1:
             d = {k: v.reshape(B, V * v.shape[1], *v.shape[2:])
                  for k, v in d.items()}
+        return d
+
+    def _forward_scene(self, point_cloud, image, unprojected, geometry):
+        feats = None
+        if self.use_fusion:
+            B, V = image.shape[:2]
+            with record_function("predictor/frozen_vae"):
+                xn = self.raw_normalized_features(
+                    image.reshape(B * V, *image.shape[2:]))
+            feats = self.image_conv(xn)
+        with record_function("predictor/sparseunet"):
+            out, coords, mask = self.point_network.forward_scene(
+                point_cloud, feats, unprojected,
+                self.fusion_mlps if self.use_fusion else None,
+                geometry=geometry)
+        d = self.activate(out, coords)
+        d["mask"] = mask
         return d
 
     def activate(self, out, center) -> Dict[str, torch.Tensor]:

@@ -1,8 +1,10 @@
-"""Brute-force reference renderer, differentiated by autograd.
+"""Brute-force reference renderer, differentiated by autograd; tile sizes.
 
 Port of the reference part of unipre3d_tpu/ops/rasterizer/render.py
 (``_alpha``, ``_composite``, ``_sorted_by_depth``,
-``rasterize_projected_reference``, ``rasterize_reference``): every pixel
+``rasterize_projected_reference``, ``rasterize_reference``) and of
+``auto_tile``. The tiled XLA renderer (``rasterize_projected``) is not
+ported yet (ROADMAP.md item 14). In the reference renderer every pixel
 composites every valid gaussian in depth order, O(N*P). It skips a pair at
 ``power > 0`` (the dense kernel skips at ``power > 1e-4``) and stops a
 pixel once T after a gaussian would fall below 1e-4.
@@ -15,6 +17,26 @@ import torch
 from unipre3d_tpu_torch.ops.rasterizer.pack import ALPHA_MAX, ALPHA_MIN, T_EPS
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import (
     ProjectedGaussians, preprocess_gaussians)
+
+
+def auto_tile(img_h: int, img_w: int) -> tuple:
+    """Largest tile dims from {32, 16, 8, 4} dividing each image dim."""
+    def pick(s):
+        for t in (32, 16, 8, 4):
+            if s % t == 0:
+                return t
+        return 1
+    return pick(img_h), pick(img_w)
+
+
+def binned_tile(img_h: int, img_w: int) -> tuple:
+    """``auto_tile`` halved (the longer side first) down to at most 256
+    pixels, the binned splat's tile (the JAX trainer's clamp,
+    trainer.py:191-196)."""
+    th, tw = auto_tile(img_h, img_w)
+    while th * tw > 256:
+        th, tw = (th // 2, tw) if th >= tw else (th, tw // 2)
+    return th, tw
 
 
 def _alpha(mean2d, conic, opacity, pix_x, pix_y):

@@ -18,8 +18,6 @@ flows through alpha only where the pair is live and alpha < 0.99 with
 
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from unipre3d_tpu_torch import kernels
@@ -32,33 +30,9 @@ POWER_SKIP = 1e-4
 # ~2**26 elements each
 _REF_ELEMS = 1 << 26
 
-
-class _CudaKernel:
-    """One C entry point of a kernel library, with its launch count (a
-    plain int, incremented at each launch and nowhere else)."""
-
-    def __init__(self, lib: str, fn: str, n_ptr: int, n_int: int):
-        self.lib_name, self.fn_name = lib, fn
-        self.argtypes = ([ctypes.c_void_p] * n_ptr + [ctypes.c_int] * n_int
-                         + [ctypes.c_void_p])
-        self.launches = 0
-        self._fn = None
-
-    def __call__(self, *args):
-        if self._fn is None:
-            fn = getattr(kernels.load(self.lib_name), self.fn_name)
-            fn.argtypes, fn.restype = self.argtypes, ctypes.c_int
-            self._fn = fn
-        stream = torch.cuda.current_stream().cuda_stream
-        err = self._fn(*args, ctypes.c_void_p(stream))
-        self.launches += 1
-        if err != 0:
-            raise RuntimeError(f"{self.fn_name} launch failed: CUDA error "
-                               f"{err}")
-
-
-DENSE_FWD = _CudaKernel("splat_dense", "dense_splat_fwd", 4, 5)
-DENSE_BWD = _CudaKernel("splat_dense", "dense_splat_bwd", 4, 5)
+# the kernels' C entry points, with their launch counts
+DENSE_FWD = kernels.CudaKernel("splat_dense", "dense_splat_fwd", 4, 5)
+DENSE_BWD = kernels.CudaKernel("splat_dense", "dense_splat_bwd", 4, 5)
 
 
 def chunk_of(n_pad: int) -> int:
@@ -182,35 +156,13 @@ def dense_splat_bwd_ref(data, bg, tfin, g_out, img_h: int, img_w: int):
 # wrappers: kernel on CUDA tensors, plain version on CPU tensors
 # --------------------------------------------------------------------------
 
-def _check(name, t, shape):
-    if t.dtype != torch.float32 or not t.is_contiguous() or \
-            tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need a contiguous float32 tensor of shape "
-                         f"{tuple(shape)}, got {t.dtype} {tuple(t.shape)} "
-                         f"contiguous={t.is_contiguous()}")
-
-
-def _route(*tensors) -> bool:
-    """True: launch the CUDA kernel; False: take the plain version. Only a
-    CPU tensor takes the plain version; any other device raises."""
-    devs = {t.device for t in tensors}
-    if len(devs) != 1:
-        raise ValueError(f"tensors on several devices: {devs}")
-    dev = devs.pop()
-    if dev.type == "cpu":
-        return False
-    if dev.type != "cuda":
-        raise ValueError(f"the dense splat runs on cuda or cpu, not {dev}")
-    return True
-
-
 def dense_fwd(data, bg, img_h: int, img_w: int):
     """Forward: (out [R,3,H*W], tfin [R,1,H*W])."""
     R, _, n_pad = data.shape
-    if not _route(data, bg):
+    if not kernels.use_kernel("dense splat", data, bg):
         return dense_splat_fwd_ref(data, bg, img_h, img_w)
-    _check("data", data, (R, ROWS, n_pad))
-    _check("bg", bg, (3,))
+    kernels.check_tensor("data", data, (R, ROWS, n_pad))
+    kernels.check_tensor("bg", bg, (3,))
     n_pix = img_h * img_w
     out = torch.empty(R, 3, n_pix, device=data.device)
     tfin = torch.empty(R, 1, n_pix, device=data.device)
@@ -222,12 +174,13 @@ def dense_fwd(data, bg, img_h: int, img_w: int):
 def dense_bwd(data, bg, out, tfin, g_out, img_h: int, img_w: int):
     """Backward: (dgrad [R,16,N_pad], dbg [3])."""
     R, _, n_pad = data.shape
-    if not _route(data, bg, out, tfin, g_out):
+    if not kernels.use_kernel("dense splat", data, bg, out, tfin,
+                              g_out):
         return dense_splat_bwd_ref(data, bg, tfin, g_out, img_h, img_w)
     n_pix = img_h * img_w
-    _check("data", data, (R, ROWS, n_pad))
-    _check("out", out, (R, 3, n_pix))
-    _check("g_out", g_out, (R, 3, n_pix))
+    kernels.check_tensor("data", data, (R, ROWS, n_pad))
+    kernels.check_tensor("out", out, (R, 3, n_pix))
+    kernels.check_tensor("g_out", g_out, (R, 3, n_pix))
     dgrad = torch.zeros_like(data)
     DENSE_BWD(data.data_ptr(), out.data_ptr(), g_out.data_ptr(),
               dgrad.data_ptr(), R, n_pad, chunk_of(n_pad), img_h, img_w)

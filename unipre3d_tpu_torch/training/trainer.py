@@ -1,12 +1,24 @@
-"""Training: the object-pretraining step.
+"""Training: the object- and scene-pretraining step.
 
-Port of the object level and dense route of
-unipre3d_tpu/training/trainer.py: backbone forward (frozen VAE under
-``torch.no_grad``), all B*V supervision renders in one dense splat launch,
-focal-L2, then AdamW(eps 1e-15) with StepLR, clip 1.0, the NaN skip and
-EMA. The optimizer is written out to reproduce the optax chain of the JAX
-package exactly (``AdamW`` below); the step updates the model, optimizer
-and EMA in place (torch idiom; the JAX step returns a new state).
+Port of unipre3d_tpu/training/trainer.py (train step; no eval step yet):
+backbone forward (frozen VAE under ``torch.no_grad``), all B*V supervision
+renders in one splat launch each way, the photometric loss, then
+AdamW(eps 1e-15) with StepLR, clip 1.0, the NaN skip and EMA. The optimizer
+is written out to reproduce the optax chain of the JAX package exactly
+(``AdamW`` below); the step updates the model, optimizer, BatchNorm running
+stats and EMA in place (torch idiom; the JAX step returns a new state).
+
+Renderer routes (``tpu.raster_impl_train``): ``pallas_dense`` or ``auto``
+with N <= 4096 take the dense splat (splat_dense.py); ``pallas_binned``
+takes the binned splat (splat_binned.py) with the JAX trainer's tiles
+(``auto_tile`` clamped to 256 px) and per-tile cap (4 x
+``tpu.raster_tile_capacity``). ``auto`` at larger N routes to the JAX
+package's tiled XLA renderer, not ported yet (ROADMAP.md item 14): it
+raises.
+
+The scene level takes its index structures (SparseUNet geometry) from
+``batch["geometry"]``, built before the step by ``make_geometry_fn``, or
+builds them inside the step when the batch has none.
 """
 
 from __future__ import annotations
@@ -22,7 +34,11 @@ from torch.profiler import record_function
 from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.models.gaussian_predictor import (
     GaussianSplatPredictor, build_predictor)
+from unipre3d_tpu_torch.models.sparseunet import SparseKernel
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import preprocess_gaussians
+from unipre3d_tpu_torch.ops.rasterizer.render import binned_tile
+from unipre3d_tpu_torch.ops.rasterizer.splat_binned import \
+    rasterize_projected_binned
 from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
     rasterize_dense_batched
 from unipre3d_tpu_torch.utils import losses as loss_lib
@@ -114,20 +130,23 @@ def _image_hw(cfg) -> Tuple[int, int]:
 
 
 def render_supervision_views(gaussians: Dict[str, torch.Tensor], batch,
-                             cfg, bg_color) -> torch.Tensor:
+                             cfg, bg_color, stats=None) -> torch.Tensor:
     """Render the supervision views (after the ``input_images``
-    conditioning views) of every batch element in one dense splat launch
-    -> [B, V_sup, 3, H, W]."""
+    conditioning views) of every batch element in one splat launch
+    -> [B, V_sup, 3, H, W]. On the binned route a ``stats`` dict, if given,
+    receives the duplicate list's counts (splat_binned.duplicate_stats)."""
     n_in = int(cfg.data.input_images)
     img_h, img_w = _image_hw(cfg)
     tanfov = math.tan(float(cfg.data.fov) * math.pi / 360)
     N = gaussians["xyz"].shape[1]
-    impl = str(cfg.tpu.get("raster_impl_train", "auto")) if "tpu" in cfg \
-        else "auto"
-    if not (impl == "pallas_dense" or (impl == "auto" and N <= DENSE_MAX_N)):
+    tpu = cfg.get("tpu") or {}
+    impl = str(tpu.get("raster_impl_train", "auto"))
+    dense = impl == "pallas_dense" or (impl == "auto" and N <= DENSE_MAX_N)
+    if not dense and impl != "pallas_binned":
         raise NotImplementedError(
-            f"raster_impl_train={impl} with {N} gaussians: only the dense "
-            "route is ported (large-N renderers: ROADMAP.md queue A, slice 3)")
+            f"raster_impl_train={impl} with {N} gaussians: the tiled XLA "
+            "renderer is not ported yet (ROADMAP.md item 14); use "
+            "tpu.raster_impl_train=pallas_binned or pallas_dense")
     shs = torch.cat([gaussians["features_dc"], gaussians["features_rest"]],
                     dim=2)
     mask = gaussians.get("mask")
@@ -142,9 +161,17 @@ def render_supervision_views(gaussians: Dict[str, torch.Tensor], batch,
         gaussian_mask=None if mask is None else mask[:, None])
     B, Vs = pg.depth.shape[:2]
     flat = [t.expand(B, Vs, *t.shape[2:]).reshape(B * Vs, *t.shape[2:])
-            for t in (pg.mean2d, pg.conic, pg.color, pg.opacity, pg.depth,
-                      pg.valid)]
-    imgs = rasterize_dense_batched(*flat, bg_color, img_h, img_w)
+            for t in pg]
+    mean2d, conic, color, opacity, depth, radius, valid = flat
+    if dense:
+        imgs = rasterize_dense_batched(mean2d, conic, color, opacity, depth,
+                                       valid, bg_color, img_h, img_w)
+    else:
+        th, tw = binned_tile(img_h, img_w)
+        cap = int(tpu.get("raster_tile_capacity", 1024))
+        imgs = rasterize_projected_binned(
+            mean2d, conic, color, opacity, depth, radius, valid, bg_color,
+            img_h, img_w, th, tw, max_per_tile=4 * cap, stats=stats)
     return imgs.reshape(B, Vs, 3, img_h, img_w)
 
 
@@ -167,9 +194,12 @@ def compute_loss(rendered, gt, cfg, bg_color):
 def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """Random init with flax's defaults: Dense/Conv kernels lecun-normal
     (truncated normal, variance 1/fan_in), biases 0, norms (1, 0), the CLS
-    token 0 and the CLS position N(0, 1). Draws come from ``generator``."""
+    token 0 and the CLS position N(0, 1); sparse-conv kernels
+    truncated-normal(0.02). Draws come from ``generator``."""
     with torch.no_grad():
         for name, mod in model.named_modules():
+            if isinstance(mod, SparseKernel):
+                mod.reset_parameters(generator)
             if isinstance(mod, (nn.Linear, nn.Conv2d)):
                 w = mod.weight
                 fan_in = w[0].numel()
@@ -210,10 +240,31 @@ def create_train_state(cfg, device=None, seed: int = 0,
     return model, TrainState(step=0, optimizer=opt, ema=ema, generator=gen)
 
 
+def make_geometry_fn(cfg, model: GaussianSplatPredictor):
+    """Batch -> its SparseUNet geometry (models/scene_geometry.py), or None
+    for configs without one (object level). Run before the step, as the
+    JAX package's input pipeline does; the step takes it from
+    ``batch["geometry"]``."""
+    if cfg.opt.level != "scene":
+        return None
+    encoder = model.point_network.encoder
+    use_fusion = bool(cfg.opt.use_fusion)
+
+    def geometry_fn(batch):
+        return encoder.build_geometry(batch["point_cloud"],
+                                      batch.get("unprojected_coords"),
+                                      use_fusion)
+
+    return geometry_fn
+
+
 def make_train_step(cfg, model: GaussianSplatPredictor):
-    """-> ``train_step(state, batch) -> metrics`` (updates in place)."""
+    """-> ``train_step(state, batch) -> metrics`` (updates in place): loss,
+    psnr, grad_norm, nan_skipped, and on the binned route the render's
+    ``dups``, ``budget_dropped`` and ``cap_dropped``."""
     bg_color = bg_color_of(cfg)
     n_in = int(cfg.data.input_images)
+    scene = cfg.opt.level == "scene"
     ema_cfg = cfg.opt.ema
     use_ema = bool(ema_cfg.use)
     ema_beta = float(ema_cfg.beta)
@@ -224,18 +275,26 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
     params = [p for _, p in trainable]
 
     def train_step(state: TrainState, batch) -> Dict[str, float]:
+        render_stats = {}
         # the named ranges label a torch.profiler trace of the step
         # (tools/profile_torch_step.py); outside a profiler they cost a
         # few microseconds
         model.train()
         with record_function("step/forward"):
-            gaussians = model(batch["point_cloud"],
-                              batch["gt_images"][:, :n_in],
-                              batch["view_to_world_transforms"][:, :n_in],
-                              generator=state.generator)
+            if scene:
+                gaussians = model(batch["point_cloud"],
+                                  batch["gt_images"][:, :n_in],
+                                  unprojected_coords=batch.get(
+                                      "unprojected_coords"),
+                                  geometry=batch.get("geometry"))
+            else:
+                gaussians = model(batch["point_cloud"],
+                                  batch["gt_images"][:, :n_in],
+                                  batch["view_to_world_transforms"][:, :n_in],
+                                  generator=state.generator)
         with record_function("step/render"):
             rendered = render_supervision_views(gaussians, batch, cfg,
-                                                bg_color)
+                                                bg_color, render_stats)
             loss, metrics = compute_loss(
                 rendered, batch["gt_images"][:, n_in:], cfg, bg_color)
         with record_function("step/backward"):
@@ -243,7 +302,7 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
         with record_function("step/optimizer"):
             # optax.global_norm: sqrt of the sum of every squared entry
             grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-            state.optimizer.update(list(grads), grad_norm)
+            applied = state.optimizer.update(list(grads), grad_norm)
             state.step += 1
             if use_ema:
                 with torch.no_grad():
@@ -254,8 +313,10 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
                         for n, p in zip(names, params):
                             state.ema[n].mul_(ema_beta).add_(
                                 p * (1.0 - ema_beta))
+        metrics.update(render_stats)
         metrics = {k: float(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = float(grad_norm)
+        metrics["nan_skipped"] = float(not applied)
         return metrics
 
     return train_step
