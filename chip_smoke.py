@@ -12,17 +12,31 @@ Phases, all of them, in order; any failure exits non-zero:
 3. kernels: holds each kernel to its plain PyTorch version on the card,
    forward and all gradients, at the main-path shape and the other shapes
    its route takes, and times both with CUDA events: the dense splat
-   (object path) and the binned splat (scene path).
-4. train: three full-width ``transformer_pretraining`` train steps, then
-   three full-width ``sparseunet_pretraining`` steps on the binned route,
-   on synthetic data through ``unipre3d_tpu_torch.train_network``; each
-   path's kernel launch counts are set to 0 just before it and read just
-   after, and every kernel of the path must have launched. No scene step
-   may have a non-finite gradient norm or be skipped by the NaN skip.
-5. parity: one train step of a small object and a small scene configuration
+   (object path), the binned splat (scene path) and the streaming splat
+   (eval and test-video path: the scene load, the object orbit shape and a
+   purpose case of its chunk rules).
+4. train: on synthetic data through ``unipre3d_tpu_torch.train_network``,
+   each under its own output directory: three full-width
+   ``transformer_pretraining`` steps with their val loop, checkpoints and
+   test videos (``tpu.raster_impl=pallas``), then ``eval.main`` over that
+   run; three full-width ``sparseunet_pretraining`` steps on each of the
+   binned route and the ``auto`` route (the tiled renderer). Each path's
+   kernel launch counts are set to 0 just before it and read just after,
+   and every kernel of the path must have launched. No
+   scene step may have a non-finite gradient norm or be skipped by the NaN
+   skip.
+5. test renders: the object orbit (80 frames) and the test views of a
+   test example from the trained run's checkpoint, and the 16 test views of
+   a full-width scene at 84,096 slots, through the streaming splat (the
+   scene's also through the tiled renderer), each timed.
+6. parity: one train step of a small object and a small scene configuration
    on the card (kernels) against the same step on the CPU (plain versions),
    same weights and batch; for the scene also each SparseUNet/PointFusion
-   op over the step's geometry.
+   op over the step's geometry; the streaming splat with its gradients,
+   ``render_predicted`` on the ``xla`` and ``pallas`` routes and a small
+   object eval step, card against CPU. The streaming backward, which no
+   training route runs, takes its launch count from the card-side call of
+   the streaming splat with its gradients.
 
 It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then as its last line ``{"ok": true, "device": {...}}``. Without a
@@ -35,8 +49,10 @@ from __future__ import annotations
 
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -55,6 +71,13 @@ BWD_OPS_PER_PAIR = (60, 4)     # forward 16 + gradient terms 35 + sums 9; +rcp
 # without FMA: 2 more), backward with the warp sums of nine rows
 BINNED_FWD_OPS_PER_PAIR = (24, 3)
 BINNED_BWD_OPS_PER_PAIR = (62, 4)
+# csrc/splat_stream.cu does the binned kernels' per-pair arithmetic; a pair
+# it tests without compositing (a flagged chunk is tested for every pixel
+# of the tile up to the pixel's stop) costs dx, dy and the power 11, the
+# power test 1, alpha 2 and the alpha test 1; the exp
+STREAM_FWD_OPS_PER_PAIR = BINNED_FWD_OPS_PER_PAIR
+STREAM_BWD_OPS_PER_PAIR = BINNED_BWD_OPS_PER_PAIR
+STREAM_EVAL_OPS_PER_PAIR = (15, 1)
 
 TOL_IMAGE = 1e-4   # max abs error of images and T (pixel values in [0, 1])
 TOL_GRAD = 1e-4    # max abs error over max |reference|, per gradient row
@@ -94,6 +117,19 @@ def cuda_ms(fn, iters):
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def cuda_timed(fn):
+    """One call of ``fn`` between two CUDA events -> (its result, ms)."""
+    import torch
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def random_gaussians(R, N, H, W, g, invalid=0.1):
@@ -159,9 +195,15 @@ def contributing_pairs(data, H, W):
     return total
 
 
-def bound(nbytes, pairs, per_pair):
+def bound(nbytes, pairs, per_pair, evaluated=0, eval_per_pair=(0, 0)):
+    """Least time (ms) and what sets it: ``nbytes`` at the memory rate, or
+    ``pairs`` contributing pairs at ``per_pair`` (float32, special-function)
+    operations each plus the other ``evaluated - pairs`` evaluated pairs at
+    ``eval_per_pair`` each, at the float32 and SFU peaks."""
     t_bytes = nbytes / PEAK_BYTES
-    t_ops = max(pairs * per_pair[0] / PEAK_F32, pairs * per_pair[1] / PEAK_SFU)
+    rest = max(evaluated - pairs, 0)
+    t_ops = max((pairs * per_pair[0] + rest * eval_per_pair[0]) / PEAK_F32,
+                (pairs * per_pair[1] + rest * eval_per_pair[1]) / PEAK_SFU)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -405,11 +447,224 @@ def phase_binned_kernels(device):
     return results
 
 
+def stream_case(R, N, H, W, seed, device, invalid=0.0):
+    """Random gaussians (``random_gaussians``) on the card, depth-sorted
+    into the streaming splat's table with its chunk bitmap at ``auto_tile``
+    tiles, bg and a random cotangent. Returns a dict."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer.preprocess import \
+        ProjectedGaussians
+    g = torch.Generator().manual_seed(seed)
+    pg = ProjectedGaussians(*(t.to(device) for t in random_gaussians(
+        R, N, H, W, g, invalid)))
+    return stream_tables(pg, H, W, device,
+                         torch.randn(R, 3, H, W, generator=g))
+
+
+def stream_tables(pg, H, W, device, g_out):
+    """The streaming splat's inputs of projected gaussians [R, N, ...] at
+    ``auto_tile`` tiles, with bg and the cotangent ``g_out``, as a dict."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    from unipre3d_tpu_torch.ops.rasterizer.render import auto_tile
+    th, tw = auto_tile(H, W)
+    table, flags, s = ss.stream_inputs(pg, H, W, th, tw)
+    return dict(table=table, flags=flags, mean2d=s.mean2d, radius=s.radius,
+                valid=s.valid, th=th, tw=tw, H=H, W=W,
+                bg=torch.tensor([0.1, 0.2, 0.3], device=device),
+                g_out=g_out.to(device))
+
+
+def purpose_case(device):
+    """One 64x64 view (32x32 tiles: columns x 0-31 and 32-63), 2,048
+    gaussians in depth order, four chunks: chunk 0 ends with three opaque
+    broad gaussians at (20, 10) that stop the pixels around them; chunk 1
+    offers alpha-0.5 gaussians at the same place (the re-arm); chunk 2 lies
+    in tile column 1 only (column 0's chunk 2 unflagged between flagged 1
+    and 3); chunk 3 holds small gaussians in column 1 and, first, a broad
+    one (sigma 20) left of the image whose 3-sigma bbox ends at x = 31, in
+    column 0, yet which adds colour at x = 32, in column 1."""
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer.preprocess import \
+        ProjectedGaussians
+    rng = np.random.default_rng(11)
+    n = 2048
+    mean = np.zeros((n, 2))
+    sigma = np.full(n, 0.5)
+    opa = rng.uniform(0.2, 0.6, n)
+    mean[:509] = rng.uniform([2, 2], [28, 62], (509, 2))
+    opa[:509] = 0.0                            # chunk 0 filler: flags only
+    mean[509:1024] = [20.0, 10.0]
+    sigma[509:1024] = 8.0
+    opa[509:512] = [0.9, 0.95, 1.0]
+    opa[512:1024] = 0.5
+    mean[1024:1536] = rng.uniform([50, 2], [62, 62], (512, 2))
+    mean[1536] = [-30.0, 40.0]
+    sigma[1536] = 20.0
+    opa[1536] = 0.9
+    mean[1537:] = rng.uniform([40, 2], [62, 62], (511, 2))
+    var = sigma ** 2 + 0.3
+    radius = np.ceil(3 * np.sqrt(var + np.sqrt(0.1)))
+    assert -30.0 + radius[1536] == 31.0        # the broad bbox's right edge
+    f = lambda a: torch.tensor(a, dtype=torch.float32)[None]  # noqa: E731
+    pg = ProjectedGaussians(
+        f(mean), f(np.stack([1 / var, np.zeros(n), 1 / var], -1)),
+        f(rng.uniform(0, 1, (n, 3))), f(opa), f(1.0 + 1e-3 * np.arange(n)),
+        torch.tensor(radius, dtype=torch.int32)[None],
+        torch.ones(1, n, dtype=torch.bool))
+    g_out = torch.randn(1, 3, 64, 64,
+                        generator=torch.Generator().manual_seed(12))
+    return stream_tables(ProjectedGaussians(*(t.to(device) for t in pg)),
+                         64, 64, device, g_out)
+
+
+def stream_work(c, stats):
+    """What this run's data does in the streaming kernels, from the tally
+    ``stats`` of the plain forward's walk (splat_stream._walk):
+    contributing (pixel, gaussian) pairs; pairs evaluated (each flagged
+    chunk up to each pixel's stop in it); pixels that contribute in a chunk
+    after stopping in an earlier one (the re-arm); (tile, gaussian) pairs
+    where a gaussian whose bbox misses the tile contributes to one of its
+    pixels; tiles with an unflagged chunk between two flagged ones; and the
+    table columns of the chunks some tile of their render flags (what the
+    kernels must read)."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    flags = c["flags"]
+    ov = ss.tile_overlap(c["mean2d"], c["radius"], c["valid"], c["H"],
+                         c["W"], c["th"], c["tw"])
+    outside = (stats["hit"][..., :ov.shape[-1]] & ~ov).sum()
+    f = flags.bool()
+    seen = torch.cummax(f.int(), -1).values.bool()      # a flag at or before
+    ahead = torch.flip(torch.cummax(torch.flip(f.int(), [-1]), -1).values,
+                       [-1]).bool()                     # a flag at or after
+    gap = (~f[..., 1:-1] & seen[..., :-2] & ahead[..., 2:]).any(-1)
+    cols = int(f.any(1).sum()) * ss.CHUNK
+    return dict(pairs=int(stats["pairs"]), evaluated=int(stats["evaluated"]),
+                rearm=int(stats["rearm"]), outside=int(outside),
+                gap_tiles=int(gap.sum()), cols=cols)
+
+
+def phase_stream_kernels(device):
+    """The streaming kernels against their plain versions at three shapes:
+    (a) the scene load, 8 views x 84,096 valid gaussians at 120x160 (8x32
+    tiles), what a ScanNet scene gives the test views; (b) the object orbit
+    shape, N = 128 at 128x128 (32x32 tiles); (c) the purpose case
+    (``purpose_case``). Image, T (bit for bit), the nine gradient rows and
+    dbg; times and bounds at (a) and (b)."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    cases = [("scene", lambda: stream_case(8, 84096, 120, 160, 200, device)),
+             ("orbit", lambda: stream_case(1, 128, 128, 128, 201, device,
+                                           invalid=0.1)),
+             ("purpose", lambda: purpose_case(device))]
+    results = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for label, make in cases:
+        c = make()
+        table, flags, bg, g_out = c["table"], c["flags"], c["bg"], c["g_out"]
+        args = (c["H"], c["W"], c["th"], c["tw"])
+        R, _, n_pad = table.shape
+        out, logt = ss.stream_fwd(table, flags, bg, *args)
+        tot = (g_out * (out - bg.reshape(1, 3, 1, 1)
+                        * torch.exp(logt)[:, None])).sum(1)
+        dgrad = ss.stream_bwd(table, flags, bg, logt, tot, g_out, *args)
+        # the plain versions walk every column one at a time (~40 and ~90 s
+        # at the scene load): one timed call each gives both result and time
+        # (the forward also tallies the walk's work, a few reductions a
+        # chunk: stream_work)
+        stats = {}
+        (out_r, logt_r), pms_f = cuda_timed(
+            lambda: ss.stream_fwd_ref(table, flags, bg, *args, stats=stats))
+        dgrad_r, pms_b = cuda_timed(lambda: ss.stream_bwd_ref(
+            table, flags, bg, logt_r, tot, g_out, *args))
+        dbg = torch.einsum("rhw,rchw->c", torch.exp(logt), g_out)
+        dbg_r = torch.einsum("rhw,rchw->c", torch.exp(logt_r), g_out)
+        err_out = float((out - out_r).abs().max())
+        err_t = float((torch.exp(logt) - torch.exp(logt_r)).abs().max())
+        t_mismatch = int((logt != logt_r).sum())
+        row_err = [float((dgrad[:, k] - dgrad_r[:, k]).abs().max()
+                         / (dgrad_r[:, k].abs().max() + 1e-12))
+                   for k in range(9)]
+        err_bg = float((dbg - dbg_r).abs().max() / (dbg_r.abs().max()
+                                                     + 1e-12))
+        abs_bwd = max(float((dgrad - dgrad_r).abs().max()),
+                      float((dbg - dbg_r).abs().max()))
+        work = stream_work(c, stats)
+        log(f"[kernels] stream {label}: R={R} N_pad={n_pad} {c['H']}x"
+            f"{c['W']} tiles {c['th']}x{c['tw']}: {work['pairs']} "
+            f"contributing pairs of {work['evaluated']} evaluated (flagged "
+            f"chunks up to each pixel's stop), {work['rearm']} re-armed pixel "
+            f"contributions, {work['outside']} (tile, gaussian) "
+            f"contributions from outside the gaussian's bbox, "
+            f"{work['gap_tiles']} tiles with an unflagged chunk between "
+            f"flagged ones, {int(flags.sum())} of {flags.numel()} (tile, "
+            f"chunk) flags set; fwd max|err| out {err_out:.3e} T "
+            f"{err_t:.3e} (T bit-mismatches {t_mismatch}) tol "
+            f"{TOL_IMAGE:g}; bwd max rel err per row {max(row_err):.3e} "
+            f"({', '.join(f'{e:.1e}' for e in row_err)}) dbg {err_bg:.3e} "
+            f"tol {TOL_GRAD:g}; bwd max|err| {abs_bwd:.3e}")
+        if not (err_out <= TOL_IMAGE and err_t <= TOL_IMAGE
+                and t_mismatch == 0 and max(row_err) <= TOL_GRAD
+                and err_bg <= TOL_GRAD):
+            raise AssertionError(f"stream kernel disagrees with its plain "
+                                 f"version ({label})")
+        if label == "purpose" and not (work["rearm"] > 0
+                                       and work["gap_tiles"] > 0
+                                       and work["outside"] > 0):
+            raise AssertionError(f"stream purpose case misses its purpose: "
+                                 f"{work}")
+        results["fwd_err"] = max(results["fwd_err"], err_out, err_t)
+        results["bwd_err"] = max(results["bwd_err"], abs_bwd)
+        if label in ("scene", "orbit"):
+            it_k = 20 if label == "scene" else 50
+            ms_f = cuda_ms(lambda: ss.stream_fwd(table, flags, bg, *args),
+                           it_k)
+            ms_b = cuda_ms(lambda: ss.stream_bwd(table, flags, bg, logt, tot,
+                                                 g_out, *args), it_k)
+            # bytes: rows 0-8 of the table columns of the chunks some tile
+            # of their render flags, read once, and the bitmap; bg; the
+            # forward writes out (3 planes) and log T, the backward reads
+            # log T, tot and g_out (5 planes) and adds rows 0-8 of dgrad
+            # for the same columns
+            # ops: the contributing pairs at the per-pair count, the other
+            # evaluated pairs at STREAM_EVAL_OPS_PER_PAIR (the chunk rule
+            # makes the function test them); the bound of the contributing
+            # pairs alone is printed beside it
+            tab = 9 * work["cols"] * 4
+            fixed = flags.numel() * 4 + 12
+            img = R * c["H"] * c["W"] * 4
+            ev = (work["evaluated"], STREAM_EVAL_OPS_PER_PAIR)
+            bf, byf = bound(tab + fixed + 4 * img, work["pairs"],
+                            STREAM_FWD_OPS_PER_PAIR, *ev)
+            bb, byb = bound(2 * tab + fixed + 5 * img, work["pairs"],
+                            STREAM_BWD_OPS_PER_PAIR, *ev)
+            bf_c = bound(tab + fixed + 4 * img, work["pairs"],
+                         STREAM_FWD_OPS_PER_PAIR)
+            bb_c = bound(2 * tab + fixed + 5 * img, work["pairs"],
+                         STREAM_BWD_OPS_PER_PAIR)
+            log(f"[kernels] stream {label} shape: table columns read "
+                f"{work['cols']} of {R * n_pad}; fwd {ms_f:.4f} ms (plain "
+                f"{pms_f:.3f}, bound {bf:.5f} by {byf}; contributing pairs "
+                f"only {bf_c[0]:.5f} by {bf_c[1]}); bwd {ms_b:.4f} ms (plain "
+                f"{pms_b:.3f}, bound {bb:.5f} by {byb}; contributing pairs "
+                f"only {bb_c[0]:.5f} by {bb_c[1]})")
+            results[label] = {
+                "fwd": dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
+                            bound_by=byf),
+                "bwd": dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
+                            bound_by=byb)}
+        del c, out, logt, dgrad, out_r, logt_r, dgrad_r, tot, stats
+        torch.cuda.empty_cache()
+    results.update(results["scene"])
+    return results
+
+
 SCENE_ARGV = ["--config-name", "sparseunet_pretraining",
-              "data.pts_dataset_root=synthetic",
-              "tpu.raster_impl_train=pallas_binned", "opt.batch_size=1"]
-# the small scene of the parity phase (no tile is cut)
+              "data.pts_dataset_root=synthetic", "opt.batch_size=1"]
+# the small scene of the parity phase (binned route, no tile is cut)
 SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + [
+    "tpu.raster_impl_train=pallas_binned",
     "data.training_width=32", "data.training_height=32",
     "data.input_images=2", "data.max_points=1024",
     "tpu.raster_tile_capacity=1024",
@@ -419,10 +674,15 @@ SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + [
     "layers: [1, 1, 1, 1, 1, 1, 1, 1], pixel_capacity: 512}"]
 
 
-def run_train(argv, counters, device_line, label):
+OBJECT_ARGV = ["--config-name", "transformer_pretraining",
+               "data.dataset_root=synthetic"]
+
+
+def run_train(argv, counters, device_line, label, steps=3):
     """``train_network.main(argv)`` with the launch counts of ``counters``
     ({name: CudaKernel}) set to 0 just before and read just after; every
-    one must have launched and every loss must be finite."""
+    one must have launched, every loss must be finite, and no step may
+    have a non-finite gradient norm or be skipped by the NaN skip."""
     import torch
     from unipre3d_tpu_torch import train_network
     for k in counters.values():
@@ -438,42 +698,168 @@ def run_train(argv, counters, device_line, label):
         f" (setup {result['setup_s']:.1f} s; peak device memory "
         f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on "
         f"{device_line}")
-    log(f"[train] {label}: launches {launches}")
-    if len(losses) != 3 or not all(math.isfinite(x) for x in losses):
+    log(f"[train] {label}: val {result['val']}; launches {launches}")
+    if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label} train losses not finite: {losses}")
-    if min(launches.values()) <= 0:
+    if not all(math.isfinite(x) for x in result["grad_norms"]) or \
+            any(result["nan_skipped"]):
+        raise AssertionError(f"{label} step with a non-finite gradient: "
+                             f"grad_norm {result['grad_norms']}, NaN skip "
+                             f"{result['nan_skipped']}")
+    if not result["val"] or not all(math.isfinite(v["psnr_novel"])
+                                    for v in result["val"]):
+        raise AssertionError(f"{label}: no finite validation {result['val']}")
+    if counters and min(launches.values()) <= 0:
         raise AssertionError(f"a kernel of the {label} path never launched: "
                              f"{launches}")
     return result, launches
 
 
-def phase_train(device_line):
-    """Three full-width object steps (dense splat), then three full-width
-    scene steps (binned splat)."""
+def phase_train(device_line, tmp):
+    """Three full-width object steps (dense splat) with their val loop,
+    checkpoints and test videos through the streaming splat, then
+    ``eval.main`` over the run; three full-width scene steps on each of the
+    binned and auto (tiled renderer) routes. Returns the launch counts of
+    each kernel's path (the dense and binned splats, the streaming
+    forward)."""
+    import torch
+    from unipre3d_tpu_torch import eval as eval_cli
     from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
     from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
-    _, launches = run_train(
-        ["--config-name", "transformer_pretraining",
-         "data.dataset_root=synthetic", "opt.iterations=3",
-         "logging.loss_log=1"],
-        {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD},
-        device_line, "object")
-    result, scene = run_train(
-        SCENE_ARGV + ["opt.iterations=3", "logging.loss_log=1"],
-        {"binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD},
-        device_line, "scene")
-    log(f"[train] scene: valid rows {result['valid_rows']}, geometry ms "
-        f"{[round(t, 3) for t in result['geometry_ms']]}; each step's "
-        f"render: duplicates {result['dups']}, dropped by the budget "
-        f"{result['budget_dropped']}, past the per-tile cap "
-        f"{result['cap_dropped']}")
-    if not all(math.isfinite(x) for x in result["grad_norms"]) or \
-            any(result["nan_skipped"]):
-        raise AssertionError(f"scene step with a non-finite gradient: "
-                             f"grad_norm {result['grad_norms']}, NaN skip "
-                             f"{result['nan_skipped']}")
-    launches.update(scene)
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    obj_dir = os.path.join(tmp, "object")
+    result, launches = run_train(
+        OBJECT_ARGV + ["--output-dir", obj_dir, "opt.iterations=3",
+                       "logging.loss_log=1", "logging.val_log=3",
+                       "logging.loop_log=3", "tpu.raster_impl=pallas"],
+        {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
+         "stream_fwd": ss.STREAM_FWD}, device_line, "object")
+    for name in ("model_latest.ckpt", "model_best.ckpt"):
+        if not os.path.exists(os.path.join(obj_dir, name)):
+            raise AssertionError(f"object run wrote no {name}")
+    log(f"[train] object: val ms {[round(v['ms'], 1) for v in result['val']]}"
+        f"; test videos written {result['videos']}")
+    sd.DENSE_FWD.launches = 0
+    torch.cuda.synchronize()
+    t = time.perf_counter()
+    scores = eval_cli.main([obj_dir])
+    torch.cuda.synchronize()
+    eval_s = time.perf_counter() - t
+    n_lines = len(open(os.path.join(obj_dir, "scores.txt")).readlines())
+    log(f"[eval] object test split: {n_lines} examples in {eval_s:.2f} s "
+        f"({n_lines / eval_s:.2f} examples/s, checkpoint load and test-set "
+        f"GT renders included; dense launches {sd.DENSE_FWD.launches}) on "
+        f"{device_line}: {scores}")
+    if not os.path.exists(os.path.join(obj_dir, "test_scores.json")) or \
+            not all(math.isfinite(scores[k]) for k in (
+                "PSNR_cond", "PSNR_novel", "SSIM_cond", "SSIM_novel")):
+        raise AssertionError(f"object eval: {scores}")
+    scene = {}
+    for route, counters in (
+            ("pallas_binned", {"binned_fwd": sb.BINNED_FWD,
+                               "binned_bwd": sb.BINNED_BWD}),
+            ("auto", {})):
+        res, counts = run_train(
+            SCENE_ARGV + ["--output-dir", os.path.join(tmp, f"scene_{route}"),
+                          f"tpu.raster_impl_train={route}",
+                          "opt.iterations=3", "logging.loss_log=1"],
+            counters, device_line, f"scene {route}")
+        scene[route] = counts
+        log(f"[train] scene {route}: valid rows {res['valid_rows']}, "
+            f"geometry ms {[round(t, 3) for t in res['geometry_ms']]}"
+            + (f"; each step's render: duplicates {res['dups']}, dropped by "
+               f"the budget {res['budget_dropped']}, past the per-tile cap "
+               f"{res['cap_dropped']}" if "dups" in res else ""))
+    launches.update(scene["pallas_binned"])
     return launches
+
+
+def phase_test_renders(device_line, tmp):
+    """The test renders through the streaming splat: the object orbit (80
+    frames) and the test views of the first test example, from the object
+    run's checkpoint; the 16 test views of one full-width synthetic scene
+    (84,096 slots, random weights from seed 0), then the same through the
+    tiled renderer. Launch counts set to 0 before each path and read
+    after."""
+    import torch
+    import yaml
+    from unipre3d_tpu_torch.data import Loader, SyntheticSceneDataset, collate
+    from unipre3d_tpu_torch import eval as eval_cli
+    from unipre3d_tpu_torch.data import get_dataset
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
+    from unipre3d_tpu_torch.training import trainer, video
+    from unipre3d_tpu_torch.training.config import ConfigNode, load_config
+
+    def timed(fn):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, (time.perf_counter() - t) * 1e3
+
+    obj_dir = os.path.join(tmp, "object")
+    with open(os.path.join(obj_dir, ".hydra", "config.yaml")) as f:
+        cfg = ConfigNode.from_obj(yaml.safe_load(f))
+    model, state = trainer.create_train_state(cfg, seed=0)
+    ckpt_lib.load_checkpoint(os.path.join(obj_dir, "model_latest.ckpt"),
+                             model, state)
+    batch = next(Loader(get_dataset(cfg, "test"), 1, shuffle=False).epoch(0))
+    ss.STREAM_FWD.launches = 0
+    one, mask = video.predict_example(model, state, cfg, batch)
+    views, ms_views = timed(lambda: video.test_view_frames(one, mask, cfg,
+                                                           batch))
+    orbit, ms_orbit = timed(lambda: video.render_orbit(one, cfg, 80, mask))
+    n_obj = ss.STREAM_FWD.launches
+    log(f"[render] object ({cfg.tpu.raster_impl}): test views "
+        f"{views.shape} in {ms_views:.1f} ms, orbit {orbit.shape} in "
+        f"{ms_orbit:.1f} ms ({80e3 / ms_orbit:.1f} frames/s); stream_fwd "
+        f"launches {n_obj}; on {device_line}")
+    res = int(cfg.data.training_resolution)
+    if n_obj <= 0 or orbit.shape != (80, res, res, 3) or not orbit.any():
+        raise AssertionError("object test renders did not go through the "
+                             "streaming splat")
+    loader = Loader(get_dataset(cfg, "test"), 1, shuffle=False,
+                    drop_last=False)
+    eval_step = trainer.make_eval_step(cfg, model)
+    for _ in range(2):      # a warm-up pass, then the timed one
+        scores, ms_eval = timed(lambda: eval_cli.evaluate_dataset(
+            model, eval_step, state, loader, cfg, tmp))
+    n_ex = len(loader.dataset)
+    log(f"[render] object eval (evaluate_dataset, checkpoint loaded): "
+        f"{n_ex} test examples of {cfg.data.input_images} + "
+        f"{batch['gt_images'].shape[1] - int(cfg.data.input_images)} views "
+        f"in {ms_eval:.1f} ms after a warm-up pass: "
+        f"{n_ex * 1e3 / ms_eval:.1f} examples/s on {device_line}")
+    del model, state
+    cfg = load_config("sparseunet_pretraining", overrides=SCENE_ARGV[2:] + [
+        "tpu.raster_impl=pallas"])
+    model, state = trainer.create_train_state(cfg, seed=0)
+    batch = collate([SyntheticSceneDataset(cfg, "test", num_scenes=1,
+                                           seed=42)[0]])
+    one, mask = video.predict_example(model, state, cfg, batch)
+    ss.STREAM_FWD.launches = 0
+    stream, ms_stream = timed(lambda: video.test_view_frames(one, mask, cfg,
+                                                             batch))
+    n_scene = ss.STREAM_FWD.launches
+    stream, ms_stream2 = timed(lambda: video.test_view_frames(one, mask, cfg,
+                                                              batch))
+    cfg.tpu.raster_impl = "xla"
+    tiled, ms_tiled = timed(lambda: video.test_view_frames(one, mask, cfg,
+                                                           batch))
+    tiled, ms_tiled2 = timed(lambda: video.test_view_frames(one, mask, cfg,
+                                                            batch))
+    diff = int(abs(stream.astype(int) - tiled.astype(int)).max())
+    log(f"[render] scene test views, {stream.shape[0]} views of "
+        f"{one['xyz'].shape[0]} slots ({int(mask.sum())} valid): streaming "
+        f"splat {ms_stream:.1f} / {ms_stream2:.1f} ms (stream_fwd launches "
+        f"{n_scene}), tiled renderer (capacity "
+        f"{cfg.tpu.raster_tile_capacity}) {ms_tiled:.1f} / {ms_tiled2:.1f} "
+        f"ms; frames differ by at most {diff} levels; on {device_line}")
+    if n_scene <= 0:
+        raise AssertionError("scene test views did not go through the "
+                             "streaming splat")
+    return {"object_stream_fwd": n_obj, "scene_stream_fwd": n_scene}
 
 
 def step_snapshot(cfg, batch, dev):
@@ -649,6 +1035,120 @@ def phase_parity():
         raise AssertionError("scene: card step disagrees with the CPU step")
 
 
+def phase_eval_parity():
+    """Card against CPU: the streaming splat (R = 2, 1,300 gaussians at
+    64x64, 32x32 tiles) forward and its gradients w.r.t. mean2d, conic,
+    color, opacity and bg; ``render_predicted`` on the ``xla`` and
+    ``pallas`` routes (3,000 gaussians, one 128x128 view); one small object
+    eval step (PSNR, SSIM and the renders). Returns the streaming
+    backward's launches in the card-side call (no training route runs it:
+    the JAX package runs its ``_bwd_kernel`` only under a gradient of
+    ``rasterize(impl="pallas")``)."""
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.data import batch_to, random_batch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    from unipre3d_tpu_torch.ops.rasterizer.preprocess import \
+        ProjectedGaussians
+    from unipre3d_tpu_torch.ops.rasterizer.render import render_predicted
+    from unipre3d_tpu_torch.training import trainer
+    from unipre3d_tpu_torch.training.config import load_config
+    from unipre3d_tpu_torch.utils import camera as cam_util
+
+    g = torch.Generator().manual_seed(21)
+    base = random_gaussians(2, 1300, 64, 64, g)
+    cot = torch.randn(2, 3, 64, 64, generator=g)
+    outs = []
+    for dev in ("cpu", "cuda"):
+        ins = [t.detach().to(dev).requires_grad_(k < 4)
+               for k, t in enumerate(base)]
+        bg = torch.tensor([0.1, 0.2, 0.3], device=dev, requires_grad=True)
+        ss.STREAM_FWD.launches = ss.STREAM_BWD.launches = 0
+        img = ss.rasterize_projected_stream(ProjectedGaussians(*ins), bg, 64,
+                                            64, 32, 32)
+        (img * cot.to(dev)).sum().backward()
+        launches = {"stream_fwd": ss.STREAM_FWD.launches,
+                    "stream_bwd": ss.STREAM_BWD.launches}
+        outs.append([img.detach().cpu()] + [t.grad.cpu() for t in ins[:4]]
+                    + [bg.grad.cpu()])
+    # the card-side call with its gradients: the streaming backward's path
+    if min(launches.values()) <= 0:
+        raise AssertionError(f"the streaming splat's backward path did not "
+                             f"launch its kernels: {launches}")
+    err_img = float((outs[0][0] - outs[1][0]).abs().max())
+    err_grad = max(rel_err(a, b) for a, b in zip(outs[0][1:], outs[1][1:]))
+
+    # faint gaussians: the tiled renderer's stop test runs on a cumsum that
+    # the card and the CPU sum in other orders, so a pixel at T ~ 1e-4 may
+    # decide otherwise (by up to ~alpha x 1e-4); at these opacities few
+    # pixels get there, and at most 0.1% of them may differ past TOL_IMAGE
+    rng = np.random.default_rng(22)
+    n = 3000
+    q = rng.normal(size=(n, 4))
+    gauss = {"xyz": rng.uniform(-0.35, 0.35, (n, 3)),
+             "opacity": rng.uniform(0.05, 0.3, (n, 1)),
+             "scaling": rng.uniform(0.005, 0.03, (n, 3)),
+             "rotation": q / np.linalg.norm(q, axis=1, keepdims=True),
+             "features_dc": rng.uniform(-1, 1, (n, 1, 3)),
+             "features_rest": rng.normal(scale=0.2, size=(n, 3, 3))}
+    cam = cam_util.build_camera_tensors(
+        np.eye(3), np.array([0.0, 0.0, 1.5]), math.radians(49.13),
+        math.radians(49.13), 0.5, 2.0)
+    render_err = {}
+    for impl in ("xla", "pallas"):
+        cfg = load_config("transformer_pretraining",
+                          overrides=[f"tpu.raster_impl={impl}"])
+        imgs = []
+        for dev in ("cpu", "cuda"):
+            d = {k: torch.tensor(v, dtype=torch.float32, device=dev)
+                 for k, v in gauss.items()}
+            wv, fp, cc = (torch.tensor(cam[k], device=dev) for k in (
+                "world_view_transform", "full_proj_transform",
+                "camera_center"))
+            imgs.append(render_predicted(d, wv, fp, cc, [0.0, 0.0, 0.0],
+                                         cfg)["render"].cpu())
+        err = (imgs[0] - imgs[1]).abs().amax(0)
+        render_err[impl] = (float(err.max()), int((err > TOL_IMAGE).sum()))
+
+    cfg = load_config("transformer_pretraining", overrides=[
+        "data.training_resolution=32",
+        "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "
+        "layers_per_block: 1}",
+        "model.backbone_overrides={depth: 2, drop_path_rate: 0.0}"])
+    batch = random_batch(cfg, batch=2, n_points=256, n_views=3, seed=3)
+    evals = []
+    for dev in ("cpu", "cuda"):
+        model, state = trainer.create_train_state(cfg, device=dev, seed=0)
+        for v in state.ema.values():      # an EMA away from the parameters
+            v.mul_(1.01)
+        evals.append(trainer.make_eval_step(cfg, model)(
+            state, batch_to(batch, dev)))
+    # PSNR relative, SSIM (in [-1, 1], ~0.03 on these noise targets)
+    # absolute
+    eval_err = max(abs(float(evals[0][k]) - float(evals[1][k]))
+                   / (abs(float(evals[0][k])) if "psnr" in k else 1.0)
+                   for k in ("psnr_cond", "psnr_novel", "ssim_cond",
+                             "ssim_novel"))
+    eval_img = float((evals[0]["rendered"] - evals[1]["rendered"].cpu())
+                     .abs().max())
+    log(f"[parity] streaming splat: image max|err| {err_img:.3e} (tol "
+        f"{TOL_IMAGE:g}), gradients max rel err {err_grad:.3e} (tol "
+        f"{TOL_GRAD:g}); render_predicted max|err| (pixels past "
+        f"{TOL_IMAGE:g}) xla {render_err['xla'][0]:.3e} "
+        f"({render_err['xla'][1]}), pallas {render_err['pallas'][0]:.3e} "
+        f"({render_err['pallas'][1]}), of 16384 (tol 16 pixels, at most "
+        f"1e-3); object eval step PSNR rel / SSIM abs max err "
+        f"{eval_err:.2e} (tol 1e-5), renders max|err| {eval_img:.3e} (tol "
+        f"{TOL_IMAGE:g}); launches of the card-side streaming call with "
+        f"its gradients {launches}")
+    render_ok = all(m <= 1e-3 and k <= 16 for m, k in render_err.values()) \
+        and render_err["pallas"][1] == 0
+    if err_img > TOL_IMAGE or err_grad > TOL_GRAD or not render_ok or \
+            eval_err > 1e-5 or eval_img > TOL_IMAGE:
+        raise AssertionError("eval path: card disagrees with the CPU")
+    return launches["stream_bwd"]
+
+
 def build_kernels(names):
     """Build every kernel library at once (one nvcc each, in parallel) and
     print ptxas' report."""
@@ -664,8 +1164,8 @@ def build_kernels(names):
                 log(f"[build]   {name}: {line.strip()}")
 
 
-def kernel_rows(dense, binned, launches):
-    """The ``{"kernels": [...]}`` rows of the four ported kernels."""
+def kernel_rows(dense, binned, stream, launches):
+    """The ``{"kernels": [...]}`` rows of the six ported kernels."""
     rows = []
     for timing, src, tpu_file, entries in (
             (dense, "splat_dense", "pallas_splat_dense.py",
@@ -673,7 +1173,10 @@ def kernel_rows(dense, binned, launches):
               ("bwd", "dense_bwd", "_dense_bwd_kernel", 220))),
             (binned, "splat_binned", "pallas_splat_binned.py",
              (("fwd", "binned_fwd", "_fwd_kernel", 73),
-              ("bwd", "binned_bwd", "_bwd_kernel", 116)))):
+              ("bwd", "binned_bwd", "_bwd_kernel", 116))),
+            (stream, "splat_stream", "pallas_splat.py",
+             (("fwd", "stream_fwd", "_fwd_kernel", 103),
+              ("bwd", "stream_bwd", "_bwd_kernel", 137)))):
         for key, fn, kern, line in entries:
             t = timing[key]
             rows.append({
@@ -704,13 +1207,17 @@ def main():
     smi = nvidia_smi_line()
     log(f"[device] {name} count={count} nvidia-smi: {smi}")
 
-    build_kernels(["splat_dense", "splat_binned"])
+    build_kernels(["splat_dense", "splat_binned", "splat_stream"])
     dense = phase_kernels(device)
     binned = phase_binned_kernels(device)
-    launches = phase_train(smi)
+    stream = phase_stream_kernels(device)
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        launches = phase_train(smi, tmp)
+        phase_test_renders(smi, tmp)
     phase_parity()
+    launches["stream_bwd"] = phase_eval_parity()
 
-    rows = kernel_rows(dense, binned, launches)
+    rows = kernel_rows(dense, binned, stream, launches)
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

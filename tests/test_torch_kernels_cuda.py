@@ -8,8 +8,8 @@ imports no JAX, so it runs on a machine with only PyTorch:
 Tolerances: images and T 1e-4 absolute (pixel values in [0, 1]); gradients
 1e-4 relative to each row's largest, since the backward's atomic adds sum
 the per-gaussian terms in an order that changes from run to run. The binned
-kernels walk in the plain version's order with its arithmetic: their log T
-is held bit for bit.
+and streaming kernels walk in the plain version's order with its
+arithmetic: their log T is held bit for bit.
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -21,6 +21,8 @@ import torch
 
 from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
 from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 
 
 @pytest.fixture
@@ -202,3 +204,87 @@ def test_binned_autograd_function_launches_each_kernel_once(cuda):
         assert torch.isfinite(b).all()
         assert rel_err(a, b) < 1e-4
         assert bool((b[a == 0] == 0).all())     # dropped: exactly 0
+
+
+def stream_case(R, N, H, W, tile, seed, device):
+    """Random gaussians (binned_inputs) depth-sorted into the stream
+    table, with their chunk bitmap at ``tile`` tiles."""
+    ins = binned_inputs(R, N, H, W, seed, device)
+    return ss.stream_inputs(ProjectedGaussians(*ins), H, W, *tile)[:2]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,H,W,tile", [
+    (2, 1300, 64, 64, (32, 32)),     # four CTAs a tile, three chunks
+    (1, 3000, 48, 64, (8, 32)),      # the scene's tile, six chunks
+    (3, 100, 32, 32, (16, 16))])     # one partly filled chunk
+def test_stream_kernels_match_plain_versions(cuda, R, N, H, W, tile):
+    table, flags = stream_case(R, N, H, W, tile, seed=N + R, device=cuda)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    g_out = torch.randn(R, 3, H, W, device=cuda)
+    out, logt = ss.stream_fwd(table, flags, bg, H, W, *tile)
+    tot = (g_out * (out - bg.reshape(1, 3, 1, 1)
+                    * torch.exp(logt)[:, None])).sum(1)
+    dgrad = ss.stream_bwd(table, flags, bg, logt, tot, g_out, H, W, *tile)
+    out_r, logt_r = ss.stream_fwd_ref(table, flags, bg, H, W, *tile)
+    dgrad_r = ss.stream_bwd_ref(table, flags, bg, logt_r, tot, g_out, H, W,
+                                *tile)
+    torch.cuda.synchronize()
+    assert float((out - out_r).abs().max()) < 1e-4
+    assert torch.equal(logt, logt_r)
+    for k in range(9):
+        assert rel_err(dgrad_r[:, k], dgrad[:, k]) < 1e-4, k
+    assert float(dgrad[:, 9:].abs().max()) == 0.0
+
+
+@pytest.mark.cuda
+def test_stream_autograd_function_launches_each_kernel_once(cuda):
+    """One launch each way per call for all renders, and the CPU path's
+    image and gradients (w.r.t. mean2d, conic, color, opacity, bg)."""
+    H, W = 64, 64
+    grads = []
+    for dev in ("cpu", cuda):
+        ins = binned_inputs(2, 1200, H, W, seed=3, device=dev)
+        for t in ins[:4]:
+            t.requires_grad_(True)
+        bg = torch.tensor([0.1, 0.2, 0.3], device=dev, requires_grad=True)
+        before = (ss.STREAM_FWD.launches, ss.STREAM_BWD.launches)
+        img = ss.rasterize_projected_stream(ProjectedGaussians(*ins), bg, H,
+                                            W, 32, 32)
+        (img * torch.linspace(-1, 1, img.numel(), device=dev)
+         .reshape(img.shape)).sum().backward()
+        launched = (ss.STREAM_FWD.launches - before[0],
+                    ss.STREAM_BWD.launches - before[1])
+        assert launched == ((1, 1) if dev == cuda else (0, 0))
+        grads.append([img.detach().cpu()] +
+                     [t.grad.cpu() for t in ins[:4]] + [bg.grad.cpu()])
+    assert float((grads[0][0] - grads[1][0]).abs().max()) < 1e-4
+    for a, b in zip(grads[0][1:], grads[1][1:]):
+        assert rel_err(a, b) < 1e-4
+
+
+@pytest.mark.cuda
+def test_stream_kernels_rearm_at_512(cuda):
+    """Every pixel stops inside chunk 0 and re-enters chunk 1 at its last
+    contributing T (tests/test_torch_splat_stream.py pins the plain version
+    against JAX)."""
+    n, H, W = 600, 32, 32
+    opacity = torch.zeros(1, n)
+    opacity[0, 509:512] = torch.tensor([0.9, 0.95, 1.0])
+    opacity[0, 512:] = 0.5
+    pg = ProjectedGaussians(
+        torch.full((1, n, 2), 16.0),
+        torch.tensor([1e-6, 0.0, 1e-6]).expand(1, n, 3).contiguous(),
+        torch.rand(1, n, 3, generator=torch.Generator().manual_seed(7)),
+        opacity, torch.arange(1, n + 1, dtype=torch.float32)[None] * 0.01,
+        torch.full((1, n), 3001, dtype=torch.int32),
+        torch.ones(1, n, dtype=torch.bool))
+    table, flags, _ = ss.stream_inputs(
+        ProjectedGaussians(*(t.to(cuda) for t in pg)), H, W, 8, 8)
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    out, logt = ss.stream_fwd(table, flags, bg, H, W, 8, 8)
+    out_r, logt_r = ss.stream_fwd_ref(table, flags, bg, H, W, 8, 8)
+    assert float((out - out_r).abs().max()) < 1e-4
+    assert torch.equal(logt, logt_r)
+    T = torch.exp(logt)
+    assert 1e-4 < float(T.min()) and float(T.max()) < 2e-4

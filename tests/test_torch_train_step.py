@@ -38,6 +38,7 @@ from unipre3d_tpu_torch.models.layers import drop_path
 from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
+from test_torch_splat_stream import one_torch_thread  # noqa: F401
 
 SMALL = ["data.training_resolution=32", "opt.batch_size=2",
          "data.dataset_root=synthetic", "opt.ema.update_after_step=1",
@@ -209,9 +210,10 @@ def test_synthetic_dataset_and_loader_are_seeded():
     assert batch["point_cloud"].shape == (4, 1024, 3)
 
 
-def test_cli_trains_on_cpu():
+def test_cli_trains_on_cpu(tmp_path, one_torch_thread):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
-         "opt.iterations=2", "logging.loss_log=1"] + SMALL)
+         "--output-dir", str(tmp_path), "opt.iterations=2",
+         "logging.loss_log=1"] + SMALL)
     assert len(res["losses"]) == 2
     assert all(math.isfinite(x) for x in res["losses"] + res["psnrs"])

@@ -30,7 +30,8 @@ def test_config_matches_jax_except_tpu_block():
     # the port's tpu block holds the renderer keys it reads, with the JAX
     # package's values
     tt, jt = t.pop("tpu"), j.pop("tpu")
-    assert tt == {"raster_impl_train": "auto", "raster_tile_capacity": 1024}
+    assert tt == {"raster_impl": "xla", "raster_impl_train": "auto",
+                  "raster_tile_capacity": 1024}
     assert all(jt[k] == v for k, v in tt.items())
     assert t == j
     assert load_config("default_config").model.backbone_type == "transformer"

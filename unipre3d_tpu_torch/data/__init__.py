@@ -7,9 +7,10 @@ from unipre3d_tpu_torch.data.synthetic import SyntheticDataset, random_batch
 from unipre3d_tpu_torch.data.synthetic_scene import SyntheticSceneDataset
 
 
-def get_dataset(cfg, device=None):
-    """The training set a config names. Only the synthetic datasets are
-    ported (``data.dataset_root=synthetic`` for objects,
+def get_dataset(cfg, split: str = "train", device=None):
+    """The ``train``, ``val`` or ``test`` split of the dataset a config
+    names, its GT views rendered on ``device``. Only the synthetic datasets
+    are ported (``data.dataset_root=synthetic`` for objects,
     ``data.pts_dataset_root=synthetic`` for ScanNet scenes); the ShapeNet
     and ScanNet readers are later items (ROADMAP.md queue A)."""
     root = cfg.data.get("dataset_root", cfg.data.get("pts_dataset_root"))
@@ -21,8 +22,8 @@ def get_dataset(cfg, device=None):
             "queue A")
     seed = int(cfg.general.random_seed)
     if cfg.data.category == "scannet":
-        return SyntheticSceneDataset(cfg, seed=seed, device=device)
-    return SyntheticDataset(cfg, seed=seed, device=device)
+        return SyntheticSceneDataset(cfg, split, seed=seed, device=device)
+    return SyntheticDataset(cfg, split, seed=seed, device=device)
 
 
 __all__ = ["Loader", "SyntheticDataset", "SyntheticSceneDataset", "batch_to",

@@ -1,8 +1,8 @@
 """Batching: the collate part of unipre3d_tpu/data/loader.py.
 
 Stacks numpy example dicts into batches in a seeded per-epoch order
-(``seed + epoch``), and moves a batch to a device as float32 tensors
-(integer and boolean arrays keep their type). Nested dicts stack field by
+(``seed + epoch``) or in order, and moves a batch to a device as float32
+tensors (integer and boolean arrays keep their type). Nested dicts stack field by
 field: the scene schema's ``point_cloud`` dict (``coord``, ``grid_coord``,
 ``feat``, ``mask``, ``min_coord``) becomes a dict of [B, ...] arrays beside
 ``unprojected_coords`` [B, V, H, W, 4]. The JAX loader's host sharding and
@@ -40,24 +40,39 @@ def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 class Loader:
-    """Shuffled batches of ``batch_size`` examples (order seeded by
-    ``seed + epoch``); a ragged last batch is dropped."""
+    """Batches of ``batch_size`` examples, shuffled (order seeded by
+    ``seed + epoch``) or in order; a ragged last batch is dropped unless
+    ``drop_last`` is False."""
 
-    def __init__(self, dataset, batch_size: int, seed: int = 0):
+    def __init__(self, dataset, batch_size: int, seed: int = 0,
+                 shuffle: bool = True, drop_last: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
+        self.shuffle = shuffle
+        self.drop_last = drop_last
 
-    def epoch(self, epoch: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+    def batches_per_epoch(self) -> int:
+        n, b = len(self.dataset), self.batch_size
+        return n // b if self.drop_last else -(-n // b)
+
+    def epoch(self, epoch: int = 0, start: int = 0
+              ) -> Iterator[Dict[str, np.ndarray]]:
+        """The epoch's batches from batch ``start`` on."""
         n = len(self.dataset)
-        idx = np.random.default_rng(self.seed + epoch).permutation(n)
-        for b in range(n // self.batch_size):
+        idx = np.random.default_rng(self.seed + epoch).permutation(n) \
+            if self.shuffle else np.arange(n)
+        for b in range(start, self.batches_per_epoch()):
             sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
             yield collate([self.dataset[int(i)] for i in sel])
 
-    def __iter__(self):
-        """Infinite iterator over epochs."""
-        epoch = 0
+    def iter_from(self, step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
+        """Infinite iterator over epochs, starting after the first ``step``
+        batches (a resumed run takes the batches it would have taken)."""
+        epoch, start = divmod(step, self.batches_per_epoch())
         while True:
-            yield from self.epoch(epoch)
-            epoch += 1
+            yield from self.epoch(epoch, start)
+            epoch, start = epoch + 1, 0
+
+    def __iter__(self):
+        return self.iter_from(0)

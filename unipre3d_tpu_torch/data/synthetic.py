@@ -8,6 +8,13 @@ ShapeNet batch schema: ``gt_images [V,3,H,W]``, ``world_view_transforms``
 ``camera_centers [V,3]``, ``point_cloud [N,3(+1)]``. Every random draw
 comes from a generator seeded by the dataset seed (and, per example, by
 the index), where the JAX version draws its view choice unseeded.
+
+Splits as the JAX version's: ``train``, ``val`` and ``test`` draw from the
+dataset seed + 0, + 10,000 and + 20,000; outside ``train`` an example holds
+every view in order. The JAX version gives every split a virtual length of
+128 (its 8 objects repeated 16 times); here only ``train`` does, and
+``val``/``test`` hold each object once, which leaves every mean over the
+split as it is.
 """
 
 from __future__ import annotations
@@ -24,6 +31,9 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
     rasterize_dense_batched
 from unipre3d_tpu_torch.utils import camera as cam_util
 from unipre3d_tpu_torch.utils.sh import rgb2sh
+
+SPLIT_SEED = {"train": 0, "val": 10_000, "test": 20_000}
+
 
 def _shape_points(rng: np.random.Generator, kind: int, n: int) -> np.ndarray:
     """n surface points of a unit-ish centred shape (sphere/torus/cube)."""
@@ -64,18 +74,19 @@ def _orbit_camera(azimuth: float, elevation: float, distance: float):
 
 
 class SyntheticDataset:
-    """Object-level synthetic training set (ShapeNet schema). GT views are
-    rendered once, at construction, on ``device`` (the card by default).
-    The JAX version's val/test splits wait for the eval slice."""
+    """Object-level synthetic dataset (ShapeNet schema), one split. GT views
+    are rendered once, at construction, on ``device`` (the card by
+    default)."""
 
-    def __init__(self, cfg, num_objects: int = 8, num_views: int = 8,
-                 points_per_object: int = 1024, render_points: int = 256,
-                 seed: int = 0, device=None):
+    def __init__(self, cfg, split: str = "train", num_objects: int = 8,
+                 num_views: int = 8, points_per_object: int = 1024,
+                 render_points: int = 256, seed: int = 0, device=None):
         self.cfg = cfg
+        self.split = split
         self.num_views = num_views
         self.imgs_per_obj = int(cfg.opt.get("imgs_per_obj", 4))
         self.input_images = int(cfg.data.input_images)
-        self.base_seed = seed
+        self.base_seed = seed + SPLIT_SEED[split]
         res = int(cfg.data.training_resolution)
         fov = math.radians(float(cfg.data.fov))
         rng = np.random.default_rng(self.base_seed)
@@ -129,15 +140,21 @@ class SyntheticDataset:
         return img.reshape(O, V, 3, res, res).cpu().numpy()
 
     def __len__(self):
-        # virtual length: keeps epochs non-empty at any batch size
-        return max(len(self.clouds), 128)
+        # train: a virtual length that keeps epochs non-empty at any batch
+        # size
+        if self.split == "train":
+            return max(len(self.clouds), 128)
+        return len(self.clouds)
 
     def __getitem__(self, index: int) -> Dict[str, np.ndarray]:
         o = index % len(self.clouds)
-        rng = np.random.default_rng((self.base_seed, index))
-        sel = rng.permutation(self.num_views)[:self.imgs_per_obj]
-        # conditioning views first, then every supervision view
-        idx = np.concatenate([sel[:self.input_images], sel])
+        if self.split == "train":
+            rng = np.random.default_rng((self.base_seed, index))
+            sel = rng.permutation(self.num_views)[:self.imgs_per_obj]
+            # conditioning views first, then every supervision view
+            idx = np.concatenate([sel[:self.input_images], sel])
+        else:
+            idx = np.arange(self.num_views)
         pc = self.clouds[o]
         if int(self.cfg.model.in_channels) == 4:
             # gravity channel

@@ -9,10 +9,15 @@ Every random draw comes from one numpy generator in the JAX version's
 order, so point clouds, cameras and unprojections equal the JAX dataset's.
 
 The ground-truth views differ: the JAX dataset renders them with its XLA
-tiled renderer (capacity min(512, N)), which the port does not have yet
-(ROADMAP.md item 14); the port renders them with its own binned splat,
-forward only, all views of a scene in one launch, on ``device`` (the card
-by default).
+tiled renderer (capacity min(512, N)); the port renders them with its own
+binned splat, forward only, all views of a scene in one launch, on
+``device`` (the card by default).
+
+Splits as the JAX version's: ``train``, ``val`` and ``test`` draw from the
+dataset seed + 0, + 10,000 and + 20,000, and every example holds every view
+in order. The JAX version gives every split a virtual length of 16 (its 4
+scenes repeated); here only ``train`` does, and ``val``/``test`` hold each
+scene once, which leaves every mean over the split as it is.
 
 Example schema (padded to a fixed point capacity M):
 ``point_cloud`` {``coord`` [M,3], ``grid_coord`` [M,3] int32, ``feat``
@@ -149,6 +154,7 @@ class SyntheticSceneDataset:
                  num_points: int = 4096, capacity: int = None, seed: int = 0,
                  device=None):
         self.cfg = cfg
+        self.split = split
         H = int(cfg.data.training_height)
         W = int(cfg.data.training_width)
         self.input_images = int(cfg.data.input_images)
@@ -239,8 +245,11 @@ class SyntheticSceneDataset:
         return img.cpu().numpy()
 
     def __len__(self):
-        # virtual length: keeps epochs non-empty at any batch size
-        return max(len(self.examples), 16)
+        # train: a virtual length that keeps epochs non-empty at any batch
+        # size
+        if self.split == "train":
+            return max(len(self.examples), 16)
+        return len(self.examples)
 
     def __getitem__(self, index: int) -> Dict:
         return self.examples[index % len(self.examples)]

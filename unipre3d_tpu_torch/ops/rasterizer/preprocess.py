@@ -155,3 +155,17 @@ def preprocess_gaussians(
         mean2d=mean2d, conic=conic, color=color,
         opacity=torch.where(valid, opacities, torch.zeros_like(opacities)),
         depth=depth, radius=radius, valid=valid)
+
+
+def sort_by_depth(pg: ProjectedGaussians) -> ProjectedGaussians:
+    """Stable depth sort of every render's gaussians along the last gaussian
+    axis of fields [..., N, ...]; invalid gaussians go to the back."""
+    key = torch.where(pg.valid, pg.depth,
+                      torch.full_like(pg.depth, float("inf")))
+    order = torch.argsort(key, dim=-1, stable=True)
+    lead = order.ndim
+
+    def take(t):
+        idx = order.reshape(*order.shape, *([1] * (t.ndim - lead)))
+        return torch.take_along_dim(t, idx, dim=lead - 1)
+    return ProjectedGaussians(*(take(t) for t in pg))

@@ -1,20 +1,23 @@
-"""Training: the object- and scene-pretraining step.
+"""Training: the object- and scene-pretraining step and the eval step.
 
-Port of unipre3d_tpu/training/trainer.py (train step; no eval step yet):
-backbone forward (frozen VAE under ``torch.no_grad``), all B*V supervision
-renders in one splat launch each way, the photometric loss, then
-AdamW(eps 1e-15) with StepLR, clip 1.0, the NaN skip and EMA. The optimizer
-is written out to reproduce the optax chain of the JAX package exactly
-(``AdamW`` below); the step updates the model, optimizer, BatchNorm running
-stats and EMA in place (torch idiom; the JAX step returns a new state).
+Port of unipre3d_tpu/training/trainer.py: backbone forward (frozen VAE
+under ``torch.no_grad``), all B*V supervision renders in one splat launch
+each way, the photometric loss, then AdamW(eps 1e-15) with StepLR, clip
+1.0, the NaN skip and EMA. The optimizer is written out to reproduce the
+optax chain of the JAX package exactly (``AdamW`` below); the step updates
+the model, optimizer, BatchNorm running stats and EMA in place (torch
+idiom; the JAX step returns a new state). The eval step renders every view
+with the EMA parameters in eval mode and returns the cond/novel PSNR and
+SSIM.
 
 Renderer routes (``tpu.raster_impl_train``): ``pallas_dense`` or ``auto``
 with N <= 4096 take the dense splat (splat_dense.py); ``pallas_binned``
 takes the binned splat (splat_binned.py) with the JAX trainer's tiles
 (``auto_tile`` clamped to 256 px) and per-tile cap (4 x
-``tpu.raster_tile_capacity``). ``auto`` at larger N routes to the JAX
-package's tiled XLA renderer, not ported yet (ROADMAP.md item 14): it
-raises.
+``tpu.raster_tile_capacity``); ``xla``, and ``auto`` at larger N, take the
+tiled renderer (render.py:rasterize_projected) with ``auto_tile`` tiles and
+``tpu.raster_tile_capacity`` gaussians a tile. Any other value raises (the
+JAX trainer reads a value it does not know as ``xla``).
 
 The scene level takes its index structures (SparseUNet geometry) from
 ``batch["geometry"]``, built before the step by ``make_geometry_fn``, or
@@ -35,8 +38,10 @@ from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.models.gaussian_predictor import (
     GaussianSplatPredictor, build_predictor)
 from unipre3d_tpu_torch.models.sparseunet import SparseKernel
-from unipre3d_tpu_torch.ops.rasterizer.preprocess import preprocess_gaussians
-from unipre3d_tpu_torch.ops.rasterizer.render import binned_tile
+from unipre3d_tpu_torch.ops.rasterizer.preprocess import (
+    ProjectedGaussians, preprocess_gaussians)
+from unipre3d_tpu_torch.ops.rasterizer.render import (
+    auto_tile, binned_tile, rasterize_projected)
 from unipre3d_tpu_torch.ops.rasterizer.splat_binned import \
     rasterize_projected_binned
 from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
@@ -44,6 +49,7 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
 from unipre3d_tpu_torch.utils import losses as loss_lib
 
 DENSE_MAX_N = 4096   # the dense route serves up to this many gaussians
+TRAIN_IMPLS = ("auto", "pallas_dense", "pallas_binned", "xla")
 
 
 def split_frozen(model: nn.Module):
@@ -130,23 +136,23 @@ def _image_hw(cfg) -> Tuple[int, int]:
 
 
 def render_supervision_views(gaussians: Dict[str, torch.Tensor], batch,
-                             cfg, bg_color, stats=None) -> torch.Tensor:
-    """Render the supervision views (after the ``input_images``
-    conditioning views) of every batch element in one splat launch
-    -> [B, V_sup, 3, H, W]. On the binned route a ``stats`` dict, if given,
-    receives the duplicate list's counts (splat_binned.duplicate_stats)."""
-    n_in = int(cfg.data.input_images)
+                             cfg, bg_color, stats=None,
+                             start_view: int = None) -> torch.Tensor:
+    """Render views [start_view:] (default: the supervision views after the
+    ``input_images`` conditioning views) of every batch element in one
+    splat launch -> [B, V_sup, 3, H, W]. On the binned route a ``stats``
+    dict, if given, receives the duplicate list's counts
+    (splat_binned.duplicate_stats)."""
+    n_in = int(cfg.data.input_images) if start_view is None else start_view
     img_h, img_w = _image_hw(cfg)
     tanfov = math.tan(float(cfg.data.fov) * math.pi / 360)
     N = gaussians["xyz"].shape[1]
     tpu = cfg.get("tpu") or {}
     impl = str(tpu.get("raster_impl_train", "auto"))
+    if impl not in TRAIN_IMPLS:
+        raise ValueError(f"raster_impl_train {impl!r}: one of {TRAIN_IMPLS}")
     dense = impl == "pallas_dense" or (impl == "auto" and N <= DENSE_MAX_N)
-    if not dense and impl != "pallas_binned":
-        raise NotImplementedError(
-            f"raster_impl_train={impl} with {N} gaussians: the tiled XLA "
-            "renderer is not ported yet (ROADMAP.md item 14); use "
-            "tpu.raster_impl_train=pallas_binned or pallas_dense")
+    cap = int(tpu.get("raster_tile_capacity", 1024))
     shs = torch.cat([gaussians["features_dc"], gaussians["features_rest"]],
                     dim=2)
     mask = gaussians.get("mask")
@@ -166,12 +172,15 @@ def render_supervision_views(gaussians: Dict[str, torch.Tensor], batch,
     if dense:
         imgs = rasterize_dense_batched(mean2d, conic, color, opacity, depth,
                                        valid, bg_color, img_h, img_w)
-    else:
+    elif impl == "pallas_binned":
         th, tw = binned_tile(img_h, img_w)
-        cap = int(tpu.get("raster_tile_capacity", 1024))
         imgs = rasterize_projected_binned(
             mean2d, conic, color, opacity, depth, radius, valid, bg_color,
             img_h, img_w, th, tw, max_per_tile=4 * cap, stats=stats)
+    else:
+        imgs = rasterize_projected(ProjectedGaussians(*flat), bg_color,
+                                   img_h, img_w, *auto_tile(img_h, img_w),
+                                   capacity=cap)
     return imgs.reshape(B, Vs, 3, img_h, img_w)
 
 
@@ -258,13 +267,30 @@ def make_geometry_fn(cfg, model: GaussianSplatPredictor):
     return geometry_fn
 
 
+def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
+            params: Dict[str, torch.Tensor] = None):
+    """The model's gaussians for a batch (object or scene schema), with
+    ``params`` (a name -> tensor dict, e.g. the EMA) standing in for the
+    module's parameters of the same names when given."""
+    if model.level == "scene":
+        args = (batch["point_cloud"], batch["gt_images"][:, :n_in])
+        kwargs = dict(unprojected_coords=batch.get("unprojected_coords"),
+                      geometry=batch.get("geometry"))
+    else:
+        args = (batch["point_cloud"], batch["gt_images"][:, :n_in],
+                batch["view_to_world_transforms"][:, :n_in])
+        kwargs = dict(generator=generator)
+    if params is None:
+        return model(*args, **kwargs)
+    return torch.func.functional_call(model, params, args, kwargs)
+
+
 def make_train_step(cfg, model: GaussianSplatPredictor):
     """-> ``train_step(state, batch) -> metrics`` (updates in place): loss,
     psnr, grad_norm, nan_skipped, and on the binned route the render's
     ``dups``, ``budget_dropped`` and ``cap_dropped``."""
     bg_color = bg_color_of(cfg)
     n_in = int(cfg.data.input_images)
-    scene = cfg.opt.level == "scene"
     ema_cfg = cfg.opt.ema
     use_ema = bool(ema_cfg.use)
     ema_beta = float(ema_cfg.beta)
@@ -281,17 +307,7 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
         # few microseconds
         model.train()
         with record_function("step/forward"):
-            if scene:
-                gaussians = model(batch["point_cloud"],
-                                  batch["gt_images"][:, :n_in],
-                                  unprojected_coords=batch.get(
-                                      "unprojected_coords"),
-                                  geometry=batch.get("geometry"))
-            else:
-                gaussians = model(batch["point_cloud"],
-                                  batch["gt_images"][:, :n_in],
-                                  batch["view_to_world_transforms"][:, :n_in],
-                                  generator=state.generator)
+            gaussians = predict(model, batch, n_in, state.generator)
         with record_function("step/render"):
             rendered = render_supervision_views(gaussians, batch, cfg,
                                                 bg_color, render_stats)
@@ -320,3 +336,36 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
         return metrics
 
     return train_step
+
+
+def make_eval_step(cfg, model: GaussianSplatPredictor, use_ema: bool = True):
+    """-> ``eval_step(state, batch) -> dict``: every view of the batch
+    rendered (``start_view=0``, the training step's route) from the EMA
+    parameters (the model's own with ``use_ema=False``) in eval mode, and
+    the PSNR and SSIM of the conditioning views (``psnr_cond``,
+    ``ssim_cond``) and of the novel views (``psnr_novel``, ``ssim_novel``),
+    each a mean over batch and views, with ``rendered`` [B, V, 3, H, W]."""
+    bg_color = bg_color_of(cfg)
+    n_in = int(cfg.data.input_images)
+
+    @torch.no_grad()
+    def eval_step(state: TrainState, batch) -> Dict[str, torch.Tensor]:
+        model.eval()
+        gaussians = predict(model, batch, n_in,
+                            params=state.ema if use_ema else None)
+        rendered = render_supervision_views(gaussians, batch, cfg, bg_color,
+                                            start_view=0)
+        gt = batch["gt_images"]
+        mse = ((rendered - gt) ** 2).mean(dim=(2, 3, 4))          # [B, V]
+        psnr = -10.0 * torch.log10(torch.clamp_min(mse, 1e-12))
+        B, V = rendered.shape[:2]
+        ssim_bv = loss_lib.ssim(rendered.reshape(B * V, *rendered.shape[2:]),
+                                gt.reshape(B * V, *gt.shape[2:]),
+                                size_average=False).reshape(B, V)
+        return {"psnr_cond": psnr[:, :n_in].mean(),
+                "psnr_novel": psnr[:, n_in:].mean(),
+                "ssim_cond": ssim_bv[:, :n_in].mean(),
+                "ssim_novel": ssim_bv[:, n_in:].mean(),
+                "rendered": rendered}
+
+    return eval_step

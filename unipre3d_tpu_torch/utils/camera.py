@@ -35,6 +35,10 @@ def get_world2view(R: np.ndarray, t: np.ndarray,
     return np.linalg.inv(c2w).astype(np.float32)
 
 
+def focal2fov(focal: float, pixels: float) -> float:
+    return 2 * math.atan(pixels / (2 * focal))
+
+
 def get_projection_matrix(znear: float, zfar: float,
                           fovx: float, fovy: float) -> np.ndarray:
     """Perspective projection, z in [0, 1] after divide, in the
