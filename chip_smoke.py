@@ -12,9 +12,11 @@ Phases, all of them, in order; any failure exits non-zero:
 3. kernels: holds each kernel to its plain PyTorch version on the card,
    forward and all gradients, at the main-path shape and the other shapes
    its route takes, and times both with CUDA events: the dense splat
-   (object path), the binned splat (scene path) and the streaming splat
-   (eval and test-video path: the scene load, the object orbit shape and a
-   purpose case of its chunk rules).
+   (object path; T and images bit for bit, also on a case built to meet
+   the edges of its per-tile cull, whose plain twin must keep every pair
+   the card's plain walk does not skip), the binned splat (scene path) and
+   the streaming splat (eval and test-video path: the scene load, the
+   object orbit shape and a purpose case of its chunk rules).
 4. train: on synthetic data through ``unipre3d_tpu_torch.train_network``,
    each under its own output directory: three full-width
    ``transformer_pretraining`` steps with their val loop, checkpoints and
@@ -177,6 +179,65 @@ def make_case(R, N, H, W, seed, device):
     return data.to(device), bg.to(device), g_out.to(device)
 
 
+def cull_edge_case(R, H, W, seed, device):
+    """A table [R,16,128] built to meet the edges of the dense kernels'
+    per-tile cull, one kind per render in turn: thin rotated ellipses
+    (large |B|), opacity 1 (the 0.99 cap), sub-pixel sigmas, centres
+    outside the image, and isotropic gaussians whose 1/255 level set
+    grazes a tile's corner pixel from outside (radius jittered by
+    +-1e-4). Returns (data, bg, g_out) like ``make_case``."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer.splat_dense import sorted_table
+    N = 128
+    g = torch.Generator().manual_seed(seed)
+    u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(*s, generator=g)
+    lu = lambda lo, hi, *s: torch.exp(u(math.log(lo), math.log(hi), *s))
+    mean2d = torch.stack([u(-8, W + 8, R, N), u(-8, H + 8, R, N)], -1)
+    sig = lu(0.7, 20.0, R, N, 2)
+    th = u(0, math.pi, R, N)
+    opacity = u(0.02, 0.99, R, N)
+    kind = torch.arange(R)[:, None].expand(R, N) % 5
+    thin = torch.stack([lu(0.1, 0.5, R, N), lu(10.0, 60.0, R, N)], -1)
+    sig = torch.where((kind == 0)[..., None], thin, sig)
+    opacity = torch.where(kind == 1, torch.ones_like(opacity), opacity)
+    sig = torch.where((kind == 2)[..., None], lu(0.05, 0.6, R, N, 2), sig)
+    side = torch.randint(0, 4, (R, N), generator=g)
+    off = u(1, 60, R, N)
+    out_x = torch.where(side == 0, -off, torch.where(
+        side == 1, W - 1 + off, mean2d[..., 0]))
+    out_y = torch.where(side == 2, -off, torch.where(
+        side == 3, H - 1 + off, mean2d[..., 1]))
+    mean2d = torch.where((kind == 3)[..., None],
+                         torch.stack([out_x, out_y], -1), mean2d)
+    sig = torch.where((kind == 3)[..., None], 2 * sig, sig)
+    # corner-grazed: the level set o exp(-r^2 / 2 s^2) = 1/255 through a
+    # tile's corner pixel, the centre outside that tile
+    graze = kind == 4
+    sig = torch.where(graze[..., None], sig[..., :1].expand(R, N, 2), sig)
+    th = torch.where(graze, torch.zeros_like(th), th)
+    lim = torch.tensor([W // 16, H // 16])
+    corner = (torch.randint(1, 2 ** 20, (R, N, 2), generator=g) % lim) * 16 \
+        + torch.randint(0, 2, (R, N, 2), generator=g) * 15
+    sgn = torch.where(corner % 16 == 15, 1.0, -1.0)
+    ang = u(0.05, math.pi / 2 - 0.05, R, N)
+    rad = sig[..., 0] * torch.sqrt(2 * torch.log(255 * opacity)) \
+        * u(1 - 1e-4, 1 + 1e-4, R, N)
+    at_corner = corner + sgn * torch.stack(
+        [torch.cos(ang), torch.sin(ang)], -1) * rad[..., None]
+    mean2d = torch.where(graze[..., None], at_corner, mean2d)
+    c, s = torch.cos(th), torch.sin(th)
+    sxx = (c * sig[..., 0]) ** 2 + (s * sig[..., 1]) ** 2
+    syy = (s * sig[..., 0]) ** 2 + (c * sig[..., 1]) ** 2
+    sxy = c * s * (sig[..., 0] ** 2 - sig[..., 1] ** 2)
+    det = sxx * syy - sxy * sxy
+    conic = torch.stack([syy / det, -sxy / det, sxx / det], -1)
+    data = sorted_table(mean2d, conic, u(0, 1, R, N, 3), opacity,
+                        u(0.5, 1.5, R, N), torch.ones(R, N, dtype=torch.bool))
+    bg = torch.tensor([0.1, 0.2, 0.3])
+    g_out = torch.randn(R, 3, H * W, generator=g)
+    return data.to(device), bg.to(device), g_out.to(device)
+
+
 def contributing_pairs(data, H, W):
     """(pixel, gaussian) pairs that contribute in this run's data (what any
     renderer must composite), from the plain version's walk."""
@@ -209,15 +270,22 @@ def bound(nbytes, pairs, per_pair, evaluated=0, eval_per_pair=(0, 0)):
 
 
 def phase_kernels(device):
-    """Each dense kernel against its plain version at three shapes."""
+    """Each dense kernel against its plain version at three shapes and a
+    case built to meet the edges of the kernels' per-tile cull: T and
+    images bit for bit, gradients to TOL_GRAD."""
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
 
-    shapes = [  # (R, N, H, W): main path, multi-chunk, top of the route
-        (128, 128, 128, 128), (8, 1000, 128, 128), (4, 4096, 128, 128)]
+    shapes = [  # (R, N, H, W): main path, multi-chunk, top of the route,
+        # cull edges (N = 0: cull_edge_case)
+        (128, 128, 128, 128), (8, 1000, 128, 128), (4, 4096, 128, 128),
+        (8, 0, 128, 128)]
     results = {}
     for si, (R, N, H, W) in enumerate(shapes):
-        data, bg, g_out = make_case(R, N, H, W, seed=si, device=device)
+        if N:
+            data, bg, g_out = make_case(R, N, H, W, seed=si, device=device)
+        else:
+            data, bg, g_out = cull_edge_case(R, H, W, seed=si, device=device)
         n_pad = data.shape[-1]
         out, tfin = sd.dense_fwd(data, bg, H, W)
         dgrad, dbg = sd.dense_bwd(data, bg, out, tfin, g_out, H, W)
@@ -227,22 +295,44 @@ def phase_kernels(device):
         err_out = float((out - out_r).abs().max())
         err_t = float((tfin - tfin_r).abs().max())
         t_mismatch = int((tfin != tfin_r).sum())
+        img_mismatch = int((out != out_r).sum())
         row_err = [float((dgrad[:, k] - dgrad_r[:, k]).abs().max()
                          / (dgrad_r[:, k].abs().max() + 1e-12))
                    for k in range(9)]
         err_bg = float((dbg - dbg_r).abs().max() / (dbg_r.abs().max() + 1e-12))
         abs_bwd = max(float((dgrad - dgrad_r).abs().max()),
                       float((dbg - dbg_r).abs().max()))
-        fwd_ok = err_out <= TOL_IMAGE and err_t <= TOL_IMAGE
+        fwd_ok = err_out <= TOL_IMAGE and err_t <= TOL_IMAGE and \
+            t_mismatch == 0 and img_mismatch == 0
         bwd_ok = max(row_err) <= TOL_GRAD and err_bg <= TOL_GRAD
-        log(f"[kernels] R={R} N={N} (N_pad {n_pad}) {H}x{W}: fwd max|err| "
-            f"out {err_out:.3e} T {err_t:.3e} (T bit-mismatches {t_mismatch})"
-            f" tol {TOL_IMAGE:g}; bwd max rel err per row "
+        log(f"[kernels] {'' if N else 'cull edges: '}R={R} N={N} (N_pad "
+            f"{n_pad}) {H}x{W}: fwd max|err| out {err_out:.3e} T {err_t:.3e} "
+            f"(bit-mismatches T {t_mismatch}, images {img_mismatch}; "
+            f"must be 0) tol {TOL_IMAGE:g}; bwd max rel err per row "
             f"{max(row_err):.3e} ({', '.join(f'{e:.1e}' for e in row_err)}) "
             f"dbg {err_bg:.3e} tol {TOL_GRAD:g}; bwd max|err| {abs_bwd:.3e}")
         if not (fwd_ok and bwd_ok):
             raise AssertionError(f"kernel disagrees with its plain version "
                                  f"at R={R} N={N}")
+        if not N:
+            # the cull's twin keeps every pair the card's plain walk does
+            # not skip (alpha != 0) on the pair's tile
+            surv = sd.tile_survivors_ref(data, H, W)
+            px, py = sd._pixels(H, W, device)
+            _, _, cols = sd._walk(data, px, py, sd.chunk_of(n_pad),
+                                  keep_columns=True)
+            live = torch.stack([col[0] != 0 for col in cols], -1)
+            del cols
+            tile = (py.long() // sd.TILE) * (-(-W // sd.TILE)) \
+                + px.long() // sd.TILE
+            missed = int((live & ~surv[:, tile, :]).sum())
+            log(f"[kernels] cull edges: {int(live.sum())} live pairs, "
+                f"{int(surv.sum())} (tile, column) survivors of "
+                f"{surv.numel()}, live pairs outside them {missed} (must "
+                f"be 0)")
+            if missed:
+                raise AssertionError("the per-tile cull drops live pairs")
+            del surv, live
         if si == 0:  # the main-path shape: time and bound
             it_k, it_p = 50, 3
             ms_f = cuda_ms(lambda: sd.dense_fwd(data, bg, H, W), it_k)
@@ -253,6 +343,15 @@ def phase_kernels(device):
             pms_b = cuda_ms(lambda: sd.dense_splat_bwd_ref(
                 data, bg, tfin_r, g_out, H, W), it_p)
             pairs = contributing_pairs(data, H, W)
+            # the cull's survivors, counted on the card by its plain twin
+            surv = sd.tile_survivors_ref(data, H, W).sum(-1)  # [R, tiles]
+            evaluated = int(surv.sum()) * sd.TILE * sd.TILE
+            log(f"[kernels] main shape: survivors of the per-tile cull "
+                f"{float(surv.float().mean()):.2f} a tile (max "
+                f"{int(surv.max())}) of {n_pad} columns; pairs evaluated "
+                f"(survivors x tile pixels) {evaluated} against "
+                f"{R * H * W * n_pad} unculled")
+            del surv
             # bytes: only table rows 0-8 are read, and only rows 0-8 of
             # dgrad are written. Forward: table + bg in, out (3 planes) and
             # tfin (1) out. Backward: table, out and g_out in (dbg's T_final

@@ -53,6 +53,7 @@ from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.utils import losses as tloss
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_splat_stream import one_torch_thread  # noqa: F401
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 

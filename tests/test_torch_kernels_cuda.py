@@ -9,7 +9,8 @@ Tolerances: images and T 1e-4 absolute (pixel values in [0, 1]); gradients
 1e-4 relative to each row's largest, since the backward's atomic adds sum
 the per-gaussian terms in an order that changes from run to run. The binned
 and streaming kernels walk in the plain version's order with its
-arithmetic: their log T is held bit for bit.
+arithmetic: their log T is held bit for bit, and so are the dense kernels'
+T and images at the edges of their per-tile cull.
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -62,6 +63,66 @@ def rel_err(ref, got):
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
 
 
+def cull_case(name):
+    """Tables [R,16,N_pad] + image size for the cull's twin: the kernel
+    tests' random gaussians (chip_smoke.py's random_gaussians in numpy) and
+    cases built to meet the cull's edges."""
+    H = W = 128
+    if name in ("random", "multi_chunk_600"):
+        R, N = (4, 128) if name == "random" else (2, 600)
+        H = W = 128 if name == "random" else 64
+        return sd.sorted_table(*gaussians(R, N, H, W, seed=11)), H, W
+    rng = np.random.default_rng(sum(map(ord, name)))
+    R, N = 4, 128
+    mean2d = rng.uniform(-8, W + 8, (R, N, 2))
+    sig = np.exp(rng.uniform(np.log(0.7), np.log(20.0), (R, N, 2)))
+    th = rng.uniform(0, np.pi, (R, N))
+    opacity = rng.uniform(0.02, 0.99, (R, N))
+    if name == "thin_rotated":        # condition number up to ~1e5: |B| large
+        sig[..., 0] = np.exp(rng.uniform(np.log(0.1), np.log(0.5), (R, N)))
+        sig[..., 1] = np.exp(rng.uniform(np.log(10.0), np.log(60.0), (R, N)))
+    elif name == "opacity_one":       # alpha at the 0.99 cap
+        opacity[:] = 1.0
+    elif name == "sub_pixel":
+        sig = np.exp(rng.uniform(np.log(0.05), np.log(0.6), (R, N, 2)))
+    elif name == "centres_outside":
+        side = rng.integers(0, 4, (R, N))
+        off = rng.uniform(1, 60, (R, N))
+        mean2d[..., 0] = np.where(side == 0, -off, np.where(
+            side == 1, W - 1 + off, mean2d[..., 0]))
+        mean2d[..., 1] = np.where(side == 2, -off, np.where(
+            side == 3, H - 1 + off, mean2d[..., 1]))
+        sig = sig * 2
+    c, s = np.cos(th), np.sin(th)
+    sxx = (c * sig[..., 0]) ** 2 + (s * sig[..., 1]) ** 2
+    syy = (s * sig[..., 0]) ** 2 + (c * sig[..., 1]) ** 2
+    sxy = c * s * (sig[..., 0] ** 2 - sig[..., 1] ** 2)
+    if name == "corner_grazed":
+        # isotropic, the 1/255 level set through a tile's corner pixel
+        # (x, y) from outside the tile, the radius jittered by +-1e-4
+        sxx = syy = sig[..., 0] ** 2
+        sxy = np.zeros_like(sxx)
+        corner = rng.integers(1, 7, (R, N, 2)) * 16 + rng.integers(
+            0, 2, (R, N, 2)) * 15 - 16
+        ang = rng.uniform(0.05, np.pi / 2 - 0.05, (R, N))
+        sgn = np.where(corner % 16 == 15, 1.0, -1.0)
+        rad = sig[..., 0] * np.sqrt(2 * np.log(255 * opacity)) \
+            * (1 + rng.uniform(-1e-4, 1e-4, (R, N)))
+        mean2d = corner + sgn * np.stack([np.cos(ang), np.sin(ang)], -1) \
+            * rad[..., None]
+    det = sxx * syy - sxy * sxy
+    conic = np.stack([syy / det, -sxy / det, sxx / det], -1)
+    f = lambda a: torch.tensor(a, dtype=torch.float32)
+    color = rng.uniform(0, 1, (R, N, 3))
+    depth = rng.uniform(0.5, 1.5, (R, N))
+    return sd.sorted_table(f(mean2d), f(conic), f(color), f(opacity),
+                           f(depth), torch.ones(R, N, dtype=torch.bool)), H, W
+
+
+CULL_CASES = ["random", "thin_rotated", "opacity_one", "sub_pixel",
+              "centres_outside", "corner_grazed", "multi_chunk_600"]
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("R,N", [(4, 128), (2, 1000), (1, 4096)])
 def test_kernels_match_plain_versions(cuda, R, N):
@@ -81,6 +142,27 @@ def test_kernels_match_plain_versions(cuda, R, N):
     assert float(dgrad[:, 9:].abs().max()) == 0.0
     assert rel_err(dbg_r, dbg) < 1e-4
 
+
+
+@pytest.mark.cuda
+def test_kernels_match_plain_versions_at_the_cull_edges(cuda):
+    """The edge cases of the dense kernels' per-tile cull (``cull_case``,
+    two renders each at 128x128): T and images bit for bit, since the cull
+    drops only pairs the walk skips at every pixel of the tile."""
+    data = torch.cat([cull_case(name)[0][:2] for name in CULL_CASES
+                      if name != "multi_chunk_600"]).to(cuda)
+    R, H, W = data.shape[0], 128, 128
+    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+    g_out = torch.randn(R, 3, H * W, device=cuda)
+    out, tfin = sd.dense_fwd(data, bg, H, W)
+    dgrad, dbg = sd.dense_bwd(data, bg, out, tfin, g_out, H, W)
+    out_r, tfin_r = sd.dense_splat_fwd_ref(data, bg, H, W)
+    dgrad_r, _ = sd.dense_splat_bwd_ref(data, bg, tfin_r, g_out, H, W)
+    torch.cuda.synchronize()
+    assert int((tfin != tfin_r).sum()) == 0
+    assert int((out != out_r).sum()) == 0
+    for k in range(9):
+        assert rel_err(dgrad_r[:, k], dgrad[:, k]) < 1e-4, k
 
 @pytest.mark.cuda
 def test_autograd_function_launches_each_kernel_once(cuda):

@@ -13,6 +13,7 @@ import torch
 
 from unipre3d_tpu.ops import point_ops as jp
 from unipre3d_tpu_torch.ops import point_ops as tp
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 
 def cloud(seed, B=2, N=256):

@@ -47,6 +47,7 @@ from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from test_torch_splat_binned import FIELDS, projected
 from test_torch_splat_stream import one_torch_thread  # noqa: F401
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 

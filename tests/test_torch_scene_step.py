@@ -13,7 +13,9 @@ equal in both packages); its GT views are seeded noise, so no renderer's
 output enters the comparison. Compared: loss, gradients (through Adam's
 first moment, 0.1 x the clipped gradient), updated parameters, BatchNorm
 running stats and EMA. The JAX step compiles for about two minutes on one
-CPU core, so it runs once, in a module fixture.
+CPU core, so it runs once per test run: in a module fixture and, under
+pytest-xdist, in the first worker that needs it, the others loading its
+results from a file (``shared_across_workers``).
 
 Tolerances and reasons:
 * loss, PSNR: 1e-5 relative;
@@ -46,11 +48,13 @@ Tolerances and reasons:
 """
 
 import math
+import os
 
 import jax
 import numpy as np
 import pytest
 import torch
+from filelock import FileLock
 
 from unipre3d_tpu.training import trainer as jtrainer
 from unipre3d_tpu.training.config import load_config as jload_config
@@ -59,6 +63,7 @@ from unipre3d_tpu_torch.data import SyntheticSceneDataset, batch_to, collate
 from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
+from test_torch_utils import release_memory, trimmed_heap  # noqa: F401
 
 SCENE = ["data.training_width=32", "data.training_height=32",
          "data.input_images=2", "data.max_points=1024", "opt.batch_size=1",
@@ -84,33 +89,73 @@ def scene_batch(cfg):
     return batch
 
 
+def shared_across_workers(tmp_path_factory, name, compute):
+    """``compute()`` -> {group: {key: tensor}}, once per test run. Under
+    pytest-xdist the first worker to get here computes it under a file lock
+    in the directory the workers share and saves it there as ``.npz``; the
+    others wait on the lock and load that file instead of computing again,
+    and the computing worker hands the reference's freed heap back to the
+    OS. In one process it just computes."""
+    if "PYTEST_XDIST_WORKER" not in os.environ:
+        return compute()
+    path = tmp_path_factory.getbasetemp().parent / f"{name}.npz"
+    with FileLock(f"{path}.lock"):
+        if not path.exists():
+            flat = {f"{g}|{k}": v.numpy()
+                    for g, d in compute().items() for k, v in d.items()}
+            tmp = path.with_suffix(f".{os.getpid()}.tmp")
+            with open(tmp, "wb") as f:
+                np.savez(f, **flat)
+            os.replace(tmp, path)
+            del flat
+            release_memory()
+    out = {}
+    with np.load(path) as z:
+        for key in z.files:
+            g, k = key.split("|", 1)
+            out.setdefault(g, {})[k] = torch.from_numpy(z[key])
+    return out
+
+
+def jax_scene_step(jcfg, batch):
+    """The JAX side of the step: the converted init (params and BN stats),
+    p0 (params), metrics, Adam's first moment, params + BN stats and EMA
+    after the step, as {group: {name: tensor}}."""
+    jmodel, tx, jstate = jtrainer.create_train_state(
+        jcfg, jax.random.PRNGKey(0), batch)
+    init = jax_to_state_dict(np_tree(jstate.params),
+                             np_tree(jstate.batch_stats))
+    p0 = jax_to_state_dict(np_tree(jstate.params))
+    jstate, jm = jax.jit(jtrainer.make_train_step(jcfg, jmodel, tx))(
+        jstate, batch)
+    return dict(
+        init=init, p0=p0,
+        jm={k: torch.tensor(float(v)) for k, v in jm.items()},
+        jmu=jax_to_state_dict(np_tree(adam_state(jstate.opt_state).mu)),
+        jp=jax_to_state_dict(np_tree(jstate.params),
+                             np_tree(jstate.batch_stats)),
+        jema=jax_to_state_dict(np_tree(jstate.ema_params)))
+
+
 @pytest.fixture(scope="module")
-def step():
+def step(tmp_path_factory):
     over = SCENE + ["tpu.raster_tile_capacity=1024"]
     jcfg = jload_config("sparseunet_pretraining", overrides=over)
     tcfg = load_config("sparseunet_pretraining", overrides=over)
     batch = scene_batch(tcfg)
-    jmodel, tx, jstate = jtrainer.create_train_state(
-        jcfg, jax.random.PRNGKey(0), batch)
-    p0 = {k: v.clone() for k, v in jax_to_state_dict(
-        np_tree(jstate.params)).items()}
+    # the JAX step's jit is the file's cost (minutes, GiBs): once per run
+    j = shared_across_workers(tmp_path_factory, "jax_scene_step",
+                              lambda: jax_scene_step(jcfg, batch))
     tmodel, tstate = trainer.create_train_state(
-        tcfg, device="cpu", state_dict=jax_to_state_dict(
-            np_tree(jstate.params), np_tree(jstate.batch_stats)))
-    jstate, jm = jax.jit(jtrainer.make_train_step(jcfg, jmodel, tx))(
-        jstate, batch)
+        tcfg, device="cpu", state_dict=j["init"])
     tb = batch_to(batch, "cpu")
     tb["geometry"] = trainer.make_geometry_fn(tcfg, tmodel)(tb)
     tm = trainer.make_train_step(tcfg, tmodel)(tstate, tb)
     names = [n for n, _ in trainer.split_frozen(tmodel)[0]]
     return dict(
-        names=names, p0=p0, jm={k: float(v) for k, v in jm.items()}, tm=tm,
-        jmu=jax_to_state_dict(np_tree(adam_state(jstate.opt_state).mu)),
-        tmu=dict(zip(names, tstate.optimizer.mu)),
-        jp=jax_to_state_dict(np_tree(jstate.params),
-                             np_tree(jstate.batch_stats)),
-        tp=tmodel.state_dict(),
-        jema=jax_to_state_dict(np_tree(jstate.ema_params)), tema=tstate.ema)
+        names=names, p0=j["p0"], jm={k: float(v) for k, v in j["jm"].items()},
+        tm=tm, jmu=j["jmu"], tmu=dict(zip(names, tstate.optimizer.mu)),
+        jp=j["jp"], tp=tmodel.state_dict(), jema=j["jema"], tema=tstate.ema)
 
 
 def test_scene_step_loss_and_metrics(step):

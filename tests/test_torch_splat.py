@@ -29,6 +29,9 @@ import pytest
 import torch
 
 from test_pallas_splat_dense import BG, FOV, RES, dense, prep_batch, setup_batch
+from test_torch_kernels_cuda import CULL_CASES, cull_case
+from test_torch_splat_stream import one_torch_thread  # noqa: F401
+from test_torch_utils import trimmed_heap  # noqa: F401
 from unipre3d_tpu.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu.ops.rasterizer.render import (
     rasterize_projected_reference, rasterize_reference)
@@ -213,3 +216,54 @@ def test_cpu_tensors_take_the_plain_version_other_devices_raise():
         sd.dense_fwd(data, torch.zeros(3, device="meta"), RES, RES)
     with pytest.raises(ValueError, match="multiple"):
         sd.chunk_of(640)
+
+
+@pytest.mark.parametrize("case", CULL_CASES)
+def test_tile_cull_twin_is_conservative(case, one_torch_thread):
+    """Every (render, pixel, column) pair the plain walk does not skip
+    (alpha != 0) is a survivor of the pixel's tile in the twin of the
+    kernels' cull, so the culled kernels walk every pair that matters."""
+    data, H, W = cull_case(case)
+    surv = sd.tile_survivors_ref(data, H, W)            # [R, tiles, N_pad]
+    px, py = sd._pixels(H, W, data.device)
+    tile = (py.long() // sd.TILE) * (-(-W // sd.TILE)) + px.long() // sd.TILE
+    live_cols = []
+    for r in range(data.shape[0]):      # a render at a time: ~70 MB a walk
+        _, _, cols = sd._walk(data[r:r + 1], px, py,
+                              sd.chunk_of(data.shape[-1]), keep_columns=True)
+        live = torch.stack([col[0][0] != 0 for col in cols], -1)  # [P, N]
+        del cols
+        assert bool((surv[r, tile, :] | ~live).all()), (case, r)
+        live_cols.append(live.any(0))
+    # the cull culls: padding columns always, and most real columns
+    n_real = int((data[:, 5] > 0).sum(-1).max())
+    assert not bool(surv[..., n_real:].any())
+    assert float(surv.float().mean()) < 0.5
+    if case == "corner_grazed":     # the level set straddles the corners
+        grazed = torch.stack(live_cols) & (data[:, 5] > 0)
+        assert 0 < int(grazed.sum()) < int((data[:, 5] > 0).sum())
+
+
+def test_tile_cull_twin_drops_padding_keeps_undecidable_rows():
+    """Opacity <= 0 drops on every tile; a row with a non-finite mean,
+    conic or opacity, a conic that is not positive definite, or a huge
+    magnitude is kept on every tile (the unculled walk decides it)."""
+    data = torch.zeros(1, 16, 128)
+    data[0, 2] = data[0, 4] = 1.0               # unit conic, mean (0, 0)
+    data[0, 5, :8] = 0.5
+    data[0, 0, 0] = float("nan")
+    data[0, 3, 1] = float("inf")
+    data[0, 5, 2] = float("nan")
+    data[0, 3, 3] = 2.0                         # det < 0
+    data[0, 0, 4] = 2e9                         # |mean| past 1e9
+    data[0, 4, 5] = 1e19                        # |conic| past 1e18
+    data[0, 0:2, 6] = 1000.0                    # far outside: dropped
+    data[0, 5, 7] = -0.5                        # negative opacity: dropped
+    surv = sd.tile_survivors_ref(data, 64, 48)
+    assert surv.shape == (1, 12, 128)
+    assert bool(surv[0, :, :6].all())
+    assert not bool(surv[0, :, 6:].any())
+    # a unit gaussian at the origin reaches only the first tile
+    data[0, 0:2, 6] = 0.0
+    surv = sd.tile_survivors_ref(data, 64, 48)
+    assert surv[0, :, 6].nonzero().flatten().tolist() == [0]

@@ -37,6 +37,7 @@ from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu_torch.ops.rasterizer.render import \
     rasterize_projected_reference
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 FOV = math.radians(49.13)
 RES = 32

@@ -38,6 +38,7 @@ from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu_torch.ops.rasterizer.render import (
     rasterize_projected, rasterize_projected_reference)
 from test_torch_splat_binned import FIELDS, projected
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 RES = 32
 TILE = 8          # 16 tiles of 8x8

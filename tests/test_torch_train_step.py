@@ -39,6 +39,7 @@ from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_splat_stream import one_torch_thread  # noqa: F401
+from test_torch_utils import trimmed_heap  # noqa: F401
 
 SMALL = ["data.training_resolution=32", "opt.batch_size=2",
          "data.dataset_root=synthetic", "opt.ema.update_after_step=1",

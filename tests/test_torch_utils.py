@@ -3,8 +3,12 @@
 Same numpy inputs through both; float32 on the CPU. Tolerances: 1e-6
 absolute for elementwise maths of O(1) values (float32 rounding of
 reassociated expressions), 1e-5 relative for means over images.
+
+Also the heap fixture every port test module takes (``trimmed_heap``).
 """
 
+import ctypes
+import gc
 import math
 
 import jax.numpy as jnp
@@ -21,6 +25,25 @@ from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.utils import camera as tcam
 from unipre3d_tpu_torch.utils import losses as tloss
 from unipre3d_tpu_torch.utils import sh as tsh
+
+
+def release_memory():
+    """Hand the heap this process has freed back to the OS. The suite runs
+    several test processes on one host at once, and glibc keeps what a JAX
+    or torch reference freed until it is trimmed (measured: 5.1 of the 5.9
+    GiB a JAX scene step leaves resident)."""
+    gc.collect()
+    trim = getattr(ctypes.CDLL(None), "malloc_trim", None)
+    if trim is not None:
+        trim(0)
+
+
+@pytest.fixture(scope="module", autouse=True)
+def trimmed_heap():
+    """``release_memory`` after the tests of each port module that imports
+    this fixture."""
+    yield
+    release_memory()
 
 
 def test_config_matches_jax_except_tpu_block():

@@ -6,9 +6,9 @@
 //
 // Input is the per-render depth-sorted packed table data [R, 16, n_pad]
 // (rows 0-8: mean x, mean y, conic A, B, C, opacity, r, g, b; padding
-// columns have opacity 0). Every pixel composites every gaussian of its
-// render front to back (dense: no per-tile culling), with the JAX kernel's
-// semantics, not those of the CUDA 3DGS reference:
+// columns have opacity 0). Every pixel composites the gaussians of its
+// render front to back with the JAX kernel's semantics, not those of the
+// CUDA 3DGS reference:
 //   * a pair is skipped at power > 1e-4 or alpha < 1/255; alpha <= 0.99;
 //   * a gaussian contributes iff T after it stays >= 1e-4; T is kept in log
 //     space (prefix of log(1 - alpha)) and freezes at the stop;
@@ -23,30 +23,68 @@
 // it as a degree-2 polynomial only to put it on the MXU.
 //
 // Launch: one CTA of 256 threads per (16x16 pixel tile, render), one thread
-// per pixel. Each CTA stages one chunk of the table (rows 0-8, at most 512
-// columns = 18 KB) in shared memory at a time; every thread walks it front
-// to back and leaves the chunk at its stop.
+// per pixel. For each chunk of the table the CTA first culls the chunk's
+// columns against its tile (tile_keeps), then walks only the survivors.
 //
-// What bounds it on the H100: per live (pixel, gaussian) pair the forward
-// does about 22 FP32 operations and three transcendentals (exp of the
-// power, log(1 - alpha), exp of the prefix), the backward about twice that;
-// bytes are small (the table is read once per CTA from L2, each pixel's
-// outputs written once). So both kernels are bound by the issue rate of the
-// FP32 pipes and the SFU, not by memory; the early stop bounds the walk by
-// the depth at which each pixel saturates. The design keeps the table in
-// shared memory (broadcast reads, no bank conflicts: all threads of a warp
-// read the same column), uses no per-pair global traffic, and stops each
-// pixel as soon as it saturates.
+// What bounds it on the H100: the TPU kernel makes every pixel evaluate
+// every gaussian of its render (power, exp and two compares even where the
+// pair is skipped); at the object step's shape (128 renders of 128
+// gaussians at 128x128) that is 30x more pairs than contribute, and the
+// walk was bound by the FP32/SFU issue rate and by one scalar shared load
+// per table row per pair. Hence:
+//   * per-tile cull: a column survives unless the plain version's own
+//     arithmetic skips it at every pixel of the tile, so images and T stay
+//     bit-identical; the walk then evaluates ~10 of 128 columns a tile at
+//     the object shape;
+//   * survivors compacted in depth order (warp ballot + popc prefix, warp
+//     offsets through shared memory) into 48-byte records (mx, my, A, B),
+//     (C, o, r, g), (b, column): a pair reads two or three broadcast
+//     128-bit shared loads instead of six to nine scalar ones;
+//   * the per-pair arithmetic is unchanged (ewa_power, expf, logf in the
+//     plain version's order), and the colour sums are rounded op by op
+//     without FMA contraction as the plain version's products and sums
+//     are: T and images equal the plain version's bit for bit. Only values
+//     that feed no decision and no image take fast intrinsics: the
+//     backward's T before the gaussian (__expf) and its division by
+//     max(1 - alpha, 1e-6) (__fdividef), within ~1e-6 of the plain
+//     gradients;
+//   * __launch_bounds__(256, 4): at most 64 registers (the cull's doubles
+//     took 73 unbounded), four CTAs an SM.
+// Bytes are small (the table read once per CTA from L2, each pixel's
+// outputs written once); what is left is the per-CTA cull, the walk over
+// the survivors and, in the backward, the warp reductions.
+//
+// The cull (tile_keeps, and its plain twin tile_survivors_ref in
+// splat_dense.py): the pair is live at a pixel only where
+// o exp(power) >= 1/255, i.e. where d' M d <= 2 ln(255 o) for the conic
+// M = [[A, B], [B, C]] and d = mean - pixel. The float32 evaluation of the
+// power errs by at most ~6 u ((|A| + |B|) dx^2 + (|C| + |B|) dy^2) (u =
+// 2^-24: the rounding of dx, dy and of the seven operations) and expf and
+// the product with o by a few ulps; the test therefore takes the deflated
+// form M - 1e-5 diag(|A| + |B|, |C| + |B|) against 2 ln(255 o) + 1e-3 (the
+// absolute slack also covers underflow and the float logf of 255 o), in
+// double (its reciprocals by __drcp_rn), and finds the exact
+// minimum of the quadratic over the tile's pixel rectangle (zero if the
+// centre lies in it, else the least of the four edge minima). Columns it
+// cannot decide are kept, as the unculled walk treats them: a non-finite
+// mean, conic or opacity, a deflated form that is not positive definite,
+// or magnitudes (|mean| >= 1e9, |conic| >= 1e18) at which the float32
+// power could overflow. Opacity <= 0 (padding) is dropped: alpha <= 0 at
+// every pixel.
 //
 // Backward reduction: the TPU accumulates per-gaussian rows across pixel
 // blocks in a revisited output block on its sequential grid, which a GPU
 // does not have. Here each warp reduces its 32 pixels' nine gradient terms
-// per gaussian with shuffles (skipped when no lane of the warp touched the
-// gaussian), lane 0 adds the sums into a [9, chunk] shared accumulator, and
-// at the end of the chunk the CTA adds each non-zero accumulator to
-// dgrad [R, 16, n_pad] with one global atomicAdd. Atomic order changes
-// from run to run, so gradients agree with the plain version to float
-// rounding of the sum order, not bit for bit.
+// per survivor (skipped when no lane of the warp touched it) with a
+// reduce-scatter over the lanes (14 shuffles instead of 9 x 5), and nine
+// lanes add the nine sums to the survivor's column of dgrad [R, 16, n_pad]
+// with one global atomicAdd each (a fire-and-forget RED in L2). A shared
+// [9, chunk] accumulator flushed once per CTA, as the first port had,
+// costs more on this card: a float atomicAdd to shared memory is a
+// compare-and-swap loop (ATOMS.CAST.SPIN), and the nine rows of a column
+// sat in one bank. Atomic order changes from run to run, so gradients agree
+// with the plain version to float rounding of the sum order, not bit for
+// bit.
 //
 // Backward suffix: instead of the TPU kernel's back-to-front walk with a
 // suffix carry, each thread walks front to back with the same arithmetic as
@@ -63,12 +101,23 @@ namespace {
 constexpr int ROWS = 16;
 constexpr int TILE = 16;
 constexpr int THREADS = TILE * TILE;
+constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CHUNK = 512;
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float POWER_SKIP = 1e-4f;
 constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
 constexpr unsigned FULL = 0xffffffffu;
+// the cull's margins (see the header; splat_dense.py holds the same)
+constexpr double CULL_DEFLATE = 1e-5;
+constexpr double CULL_TAU_SLACK = 1e-3;
+constexpr double CULL_MAX_MEAN = 1e9;
+constexpr double CULL_MAX_CONIC = 1e18;
+
+// one surviving column: (mx, my, A, B), (C, o, r, g), (b, column bits, -, -)
+struct __align__(16) Rec {
+  float4 p, q, s;
+};
 
 // EWA power -0.5 (A dx^2 + C dy^2) - B dx dy, rounded op by op without FMA
 // contraction in the plain version's order: with exp and log alike, the
@@ -81,79 +130,199 @@ __device__ __forceinline__ float ewa_power(float A, float B, float C, float dx,
   return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(B, dx), dy));
 }
 
-__device__ __forceinline__ void stage_chunk(float (*tab)[MAX_CHUNK],
-                                            const float* __restrict__ g,
-                                            int n_pad, int c0, int chunk_n) {
-  for (int k = threadIdx.x; k < 9 * chunk_n; k += THREADS) {
-    const int row = k / chunk_n, col = k - row * chunk_n;
-    tab[row][col] = g[(size_t)row * n_pad + c0 + col];
-  }
+// min over Y in [lo, hi] of a X^2 + 2 b X Y + c Y^2 (c > 0)
+__device__ __forceinline__ double edge_min(double a, double b, double c,
+                                           double X, double lo, double hi) {
+  const double y = fmin(fmax(-b * X * __drcp_rn(c), lo), hi);
+  return a * X * X + 2.0 * b * X * y + c * y * y;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// False only where the column is skipped at every pixel of the rectangle
+// [x0, x1] x [y0, y1] (pixel coordinates); see the header.
+__device__ bool tile_keeps(float fmx, float fmy, float fA, float fB, float fC,
+                           float fo, double x0, double x1, double y0,
+                           double y1) {
+  if (!(isfinite(fmx) && isfinite(fmy) && isfinite(fA) && isfinite(fB) &&
+        isfinite(fC) && isfinite(fo)))
+    return true;
+  if (fo <= 0.f) return false;
+  const double mx = fmx, my = fmy, A = fA, B = fB, C = fC;
+  if (fabs(mx) >= CULL_MAX_MEAN || fabs(my) >= CULL_MAX_MEAN ||
+      fabs(A) >= CULL_MAX_CONIC || fabs(B) >= CULL_MAX_CONIC ||
+      fabs(C) >= CULL_MAX_CONIC)
+    return true;
+  const double a = A - CULL_DEFLATE * (fabs(A) + fabs(B));
+  const double c = C - CULL_DEFLATE * (fabs(C) + fabs(B));
+  if (!(a > 0.0 && a * c - B * B > 0.0)) return true;
+  const double tau = 2.0 * (double)logf(255.f * fo) + CULL_TAU_SLACK;
+  if (tau < 0.0) return false;
+  const double lx = mx - x1, hx = mx - x0, ly = my - y1, hy = my - y0;
+  if (lx <= 0.0 && hx >= 0.0 && ly <= 0.0 && hy >= 0.0) return true;
+  const double m = fmin(fmin(edge_min(a, B, c, lx, ly, hy),
+                             edge_min(a, B, c, hx, ly, hy)),
+                        fmin(edge_min(c, B, a, ly, lx, hx),
+                             edge_min(c, B, a, hy, lx, hx)));
+  return m <= tau;
+}
+
+// Culls columns [c0, c0 + chunk_n) of the render's table g against the
+// CTA's tile and writes the survivors, in depth order, to recs[0, n).
+// Returns n. Ends with a barrier, so recs are ready; starts writing recs
+// only after one, so the previous chunk's readers are done.
+__device__ int cull_chunk(Rec* recs, int* warp_n, const float* __restrict__ g,
+                          int n_pad, int c0, int chunk_n, double x0,
+                          double x1, double y0, double y1) {
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  int total = 0;
+  for (int base = 0; base < chunk_n; base += THREADS) {
+    const int col = base + (int)threadIdx.x;
+    float v[9];
+    bool keep = false;
+    if (col < chunk_n) {
+#pragma unroll
+      for (int k = 0; k < 9; ++k) v[k] = g[(size_t)k * n_pad + c0 + col];
+      keep = tile_keeps(v[0], v[1], v[2], v[3], v[4], v[5], x0, x1, y0, y1);
+    }
+    const unsigned ballot = __ballot_sync(FULL, keep);
+    if (lane == 0) warp_n[warp] = __popc(ballot);
+    __syncthreads();
+    int off = total, pass = 0;
+#pragma unroll
+    for (int w = 0; w < WARPS; ++w) {
+      const int nw = warp_n[w];
+      off += w < warp ? nw : 0;
+      pass += nw;
+    }
+    if (keep) {
+      Rec& rec = recs[off + __popc(ballot & ((1u << lane) - 1u))];
+      rec.p = make_float4(v[0], v[1], v[2], v[3]);
+      rec.q = make_float4(v[4], v[5], v[6], v[7]);
+      rec.s = make_float4(v[8], __int_as_float(c0 + col), 0.f, 0.f);
+    }
+    total += pass;
+    __syncthreads();
+  }
+  return total;
+}
+
+// Sums v[0..8] over the warp's lanes and adds the nine sums to the
+// column's gradient rows dgc[k * n_pad]. Rows 0-7: a reduce-scatter over
+// lane bits 4, 3, 2 leaves row lane >> 2 summed over eight lanes, two more
+// shuffles over the whole warp; row 8: a butterfly. 14 shuffles.
+__device__ __forceinline__ void warp_sum_into(float (&v)[9],
+                                              float* __restrict__ dgc,
+                                              int n_pad, int lane) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) {
+    const bool up = lane & 16;
+    const float send = up ? v[j] : v[j + 4];
+    const float keep = up ? v[j + 4] : v[j];
+    v[j] = keep + __shfl_xor_sync(FULL, send, 16);
+  }
+#pragma unroll
+  for (int j = 0; j < 2; ++j) {
+    const bool up = lane & 8;
+    const float send = up ? v[j] : v[j + 2];
+    const float keep = up ? v[j + 2] : v[j];
+    v[j] = keep + __shfl_xor_sync(FULL, send, 8);
+  }
+  {
+    const bool up = lane & 4;
+    const float send = up ? v[0] : v[1];
+    const float keep = up ? v[1] : v[0];
+    v[0] = keep + __shfl_xor_sync(FULL, send, 4);
+  }
+  v[0] += __shfl_xor_sync(FULL, v[0], 2);
+  v[0] += __shfl_xor_sync(FULL, v[0], 1);
+  float s8 = v[8];
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1) s8 += __shfl_xor_sync(FULL, s8, off);
+  if ((lane & 3) == 0 && v[0] != 0.f)
+    atomicAdd(&dgc[(size_t)(lane >> 2) * n_pad], v[0]);
+  if (lane == 1 && s8 != 0.f) atomicAdd(&dgc[(size_t)8 * n_pad], s8);
+}
+
+struct Tile {
+  int x, y;               // this thread's pixel
+  bool inside;
+  double x0, x1, y0, y1;  // the tile's pixel rectangle, clipped to the image
+};
+
+__device__ __forceinline__ Tile tile_of(int H, int W, int tiles_x) {
+  Tile t;
+  const int tx0 = (int)(blockIdx.x % tiles_x) * TILE;
+  const int ty0 = (int)(blockIdx.x / tiles_x) * TILE;
+  t.x = tx0 + (int)(threadIdx.x % TILE);
+  t.y = ty0 + (int)(threadIdx.x / TILE);
+  t.inside = t.x < W && t.y < H;
+  t.x0 = tx0;
+  t.x1 = min(tx0 + TILE, W) - 1;
+  t.y0 = ty0;
+  t.y1 = min(ty0 + TILE, H) - 1;
+  return t;
+}
+
+__global__ void __launch_bounds__(THREADS, 4)
 dense_fwd_kernel(const float* __restrict__ data, const float* __restrict__ bg,
                  float* __restrict__ out, float* __restrict__ tfin,
                  int n_pad, int chunk_n, int H, int W, int tiles_x) {
-  __shared__ float tab[9][MAX_CHUNK];
+  __shared__ Rec recs[MAX_CHUNK];
+  __shared__ int warp_n[WARPS];
   const int r = blockIdx.y;
-  const int x = (blockIdx.x % tiles_x) * TILE + (int)(threadIdx.x % TILE);
-  const int y = (blockIdx.x / tiles_x) * TILE + (int)(threadIdx.x / TILE);
-  const bool inside = x < W && y < H;
-  const float px = (float)x, py = (float)y;
+  const Tile t = tile_of(H, W, tiles_x);
+  const float px = (float)t.x, py = (float)t.y;
   const float* g = data + (size_t)r * ROWS * n_pad;
 
   float cr = 0.f, cg = 0.f, cb = 0.f;
   float log_t = 0.f;  // frozen log T, carried across chunks
   for (int c0 = 0; c0 < n_pad; c0 += chunk_n) {
-    __syncthreads();
-    stage_chunk(tab, g, n_pad, c0, chunk_n);
-    __syncthreads();
-    if (!inside) continue;
+    const int n = cull_chunk(recs, warp_n, g, n_pad, c0, chunk_n, t.x0,
+                             t.x1, t.y0, t.y1);
+    if (!t.inside) continue;
     float pe = log_t;  // log T before the next gaussian of this chunk
-    for (int i = 0; i < chunk_n; ++i) {
-      const float dx = tab[0][i] - px, dy = tab[1][i] - py;
-      const float power = ewa_power(tab[2][i], tab[3][i], tab[4][i], dx, dy);
-      const float a = fminf(ALPHA_MAX, tab[5][i] * expf(power));
+    for (int i = 0; i < n; ++i) {
+      const float4 p = recs[i].p, q = recs[i].q;
+      const float dx = p.x - px, dy = p.y - py;
+      const float power = ewa_power(p.z, p.w, q.x, dx, dy);
+      const float a = fminf(ALPHA_MAX, q.y * expf(power));
       if (power > POWER_SKIP || a < ALPHA_MIN) continue;  // alpha 0: no-op
       const float incl = pe + logf(1.f - a);
       if (incl < LOG_T_EPS) break;  // stopped for the rest of this chunk
       const float w = a * expf(pe);
-      cr += w * tab[6][i];
-      cg += w * tab[7][i];
-      cb += w * tab[8][i];
+      cr = __fadd_rn(cr, __fmul_rn(w, q.z));
+      cg = __fadd_rn(cg, __fmul_rn(w, q.w));
+      cb = __fadd_rn(cb, __fmul_rn(w, recs[i].s.x));
       pe = incl;
       log_t = incl;
     }
   }
-  if (inside) {
-    const float t = expf(log_t);
-    const size_t hw = (size_t)H * W, p = (size_t)y * W + x;
+  if (t.inside) {
+    const float tv = expf(log_t);
+    const size_t hw = (size_t)H * W, p = (size_t)t.y * W + t.x;
     float* o = out + (size_t)r * 3 * hw + p;
-    o[0] = cr + bg[0] * t;
-    o[hw] = cg + bg[1] * t;
-    o[2 * hw] = cb + bg[2] * t;
-    tfin[(size_t)r * hw + p] = t;
+    o[0] = __fadd_rn(cr, __fmul_rn(bg[0], tv));
+    o[hw] = __fadd_rn(cg, __fmul_rn(bg[1], tv));
+    o[2 * hw] = __fadd_rn(cb, __fmul_rn(bg[2], tv));
+    tfin[(size_t)r * hw + p] = tv;
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(THREADS, 4)
 dense_bwd_kernel(const float* __restrict__ data, const float* __restrict__ out,
                  const float* __restrict__ gout, float* __restrict__ dgrad,
                  int n_pad, int chunk_n, int H, int W, int tiles_x) {
-  __shared__ float tab[9][MAX_CHUNK];
-  __shared__ float acc[9][MAX_CHUNK];
+  __shared__ Rec recs[MAX_CHUNK];
+  __shared__ int warp_n[WARPS];
   const int r = blockIdx.y;
-  const int x = (blockIdx.x % tiles_x) * TILE + (int)(threadIdx.x % TILE);
-  const int y = (blockIdx.x / tiles_x) * TILE + (int)(threadIdx.x / TILE);
-  const bool inside = x < W && y < H;
-  const float px = (float)x, py = (float)y;
+  const Tile t = tile_of(H, W, tiles_x);
+  const float px = (float)t.x, py = (float)t.y;
   const int lane = threadIdx.x & 31;
   const float* g = data + (size_t)r * ROWS * n_pad;
   float* dg = dgrad + (size_t)r * ROWS * n_pad;
 
   float g0 = 0.f, g1 = 0.f, g2 = 0.f, total = 0.f;
-  if (inside) {
-    const size_t hw = (size_t)H * W, p = (size_t)y * W + x;
+  if (t.inside) {
+    const size_t hw = (size_t)H * W, p = (size_t)t.y * W + t.x;
     const float* go = gout + (size_t)r * 3 * hw + p;
     const float* o = out + (size_t)r * 3 * hw + p;
     g0 = go[0];
@@ -165,37 +334,36 @@ dense_bwd_kernel(const float* __restrict__ data, const float* __restrict__ out,
 
   float log_t = 0.f, u_incl = 0.f;
   for (int c0 = 0; c0 < n_pad; c0 += chunk_n) {
-    __syncthreads();
-    stage_chunk(tab, g, n_pad, c0, chunk_n);
-    for (int k = threadIdx.x; k < 9 * chunk_n; k += THREADS)
-      acc[k / chunk_n][k % chunk_n] = 0.f;
-    __syncthreads();
+    const int n = cull_chunk(recs, warp_n, g, n_pad, c0, chunk_n, t.x0,
+                             t.x1, t.y0, t.y1);
     float pe = log_t;
-    bool active = inside;  // every pixel re-enters each chunk (chunk carry)
-    for (int i = 0; i < chunk_n; ++i) {
+    bool active = t.inside;  // every pixel re-enters each chunk (chunk carry)
+    for (int i = 0; i < n; ++i) {
       if (!__any_sync(FULL, active)) break;  // warp-uniform
       float v[9];
 #pragma unroll
       for (int k = 0; k < 9; ++k) v[k] = 0.f;
       bool touched = false;
       if (active) {
-        const float gx = tab[0][i], gy = tab[1][i];
-        const float A = tab[2][i], B = tab[3][i], C = tab[4][i];
-        const float dx = gx - px, dy = gy - py;
+        const float4 p = recs[i].p, q = recs[i].q;
+        const float A = p.z, B = p.w, C = q.x;
+        const float dx = p.x - px, dy = p.y - py;
         const float power = ewa_power(A, B, C, dx, dy);
         const float e = expf(power);
-        const float a = fminf(ALPHA_MAX, tab[5][i] * e);
+        const float a = fminf(ALPHA_MAX, q.y * e);
         if (!(power > POWER_SKIP || a < ALPHA_MIN)) {
           const float incl = pe + logf(1.f - a);
           if (incl < LOG_T_EPS) {
             active = false;
           } else {
-            const float t_before = expf(pe);
+            const float cb = recs[i].s.x;
+            const float t_before = __expf(pe);
             const float w = a * t_before;
-            const float cgv = g0 * tab[6][i] + g1 * tab[7][i] + g2 * tab[8][i];
+            const float cgv = g0 * q.z + g1 * q.w + g2 * cb;
             u_incl += w * cgv;
             const float dalpha =
-                cgv * t_before - (total - u_incl) / fmaxf(1.f - a, 1e-6f);
+                cgv * t_before -
+                __fdividef(total - u_incl, fmaxf(1.f - a, 1e-6f));
             v[6] = g0 * w;
             v[7] = g1 * w;
             v[8] = g2 * w;
@@ -214,22 +382,8 @@ dense_bwd_kernel(const float* __restrict__ data, const float* __restrict__ out,
           }
         }
       }
-      if (__any_sync(FULL, touched)) {  // warp-uniform
-#pragma unroll
-        for (int k = 0; k < 9; ++k) {
-          float s = v[k];
-#pragma unroll
-          for (int off = 16; off > 0; off >>= 1)
-            s += __shfl_down_sync(FULL, s, off);
-          if (lane == 0 && s != 0.f) atomicAdd(&acc[k][i], s);
-        }
-      }
-    }
-    __syncthreads();
-    for (int k = threadIdx.x; k < 9 * chunk_n; k += THREADS) {
-      const int row = k / chunk_n, col = k - row * chunk_n;
-      const float s = acc[row][col];
-      if (s != 0.f) atomicAdd(&dg[(size_t)row * n_pad + c0 + col], s);
+      if (__any_sync(FULL, touched))
+        warp_sum_into(v, dg + __float_as_int(recs[i].s.y), n_pad, lane);
     }
   }
 }

@@ -14,6 +14,12 @@ and carried between 512-column chunks (so a pixel may take small-alpha
 gaussians again after a stop in an earlier chunk), and a backward that
 flows through alpha only where the pair is live and alpha < 0.99 with
 ``1 - alpha`` clamped at 1e-6.
+
+The kernels cull each chunk of a render's table against each 16x16 tile
+before they walk it; ``tile_survivors_ref`` is the plain twin of that test
+(used by the tests and ``chip_smoke.py`` only: the cull drops only pairs
+the walk skips at every pixel of the tile, so the plain versions need no
+cull).
 """
 
 from __future__ import annotations
@@ -29,6 +35,15 @@ POWER_SKIP = 1e-4
 # renders per block of the plain versions: bounds their intermediates to
 # ~2**26 elements each
 _REF_ELEMS = 1 << 26
+
+# the kernels' per-tile cull (csrc/splat_dense.cu, tile_keeps): tile side,
+# deflation of the conic, slack of the threshold 2 ln(255 o), magnitudes of
+# mean and conic above which a column is kept undecided
+TILE = 16
+CULL_DEFLATE = 1e-5
+CULL_TAU_SLACK = 1e-3
+CULL_MAX_MEAN = 1e9
+CULL_MAX_CONIC = 1e18
 
 # the kernels' C entry points, with their launch counts
 DENSE_FWD = kernels.CudaKernel("splat_dense", "dense_splat_fwd", 4, 5)
@@ -90,6 +105,54 @@ def _walk(d, px, py, chunk_n, keep_columns=False):
             columns.append((alpha, e, ~skip & (alpha < ALPHA_MAX), contrib, w,
                             t_before, dx, dy))
     return rgb, pe, columns
+
+
+def tile_survivors_ref(data, img_h: int, img_w: int) -> torch.Tensor:
+    """Plain twin of the kernels' per-tile cull (``tile_keeps`` in
+    csrc/splat_dense.cu), in float64 as there: data [R,16,N_pad] ->
+    [R, n_tiles, N_pad] bool, tiles of 16x16 pixels in row-major order,
+    True where the column survives the tile's cull. A column is dropped
+    only where the minimum over the tile's pixel rectangle of the deflated
+    quadratic d' M d (M the conic less 1e-5 diag(|A| + |B|, |C| + |B|), d
+    mean minus pixel) exceeds 2 ln(255 o) + 1e-3, i.e. where the walk's
+    float32 arithmetic skips it (alpha < 1/255) at every pixel; opacity
+    <= 0 drops; a non-finite row, a deflated form that is not positive
+    definite and magnitudes at which the float32 power could overflow
+    are kept."""
+    d = data[:, :6].double()
+    mx, my, A, B, C, o = (d[:, k, None, :] for k in range(6))  # [R, 1, N]
+    tiles_x, tiles_y = -(-img_w // TILE), -(-img_h // TILE)
+    dev = data.device
+    x0 = (torch.arange(tiles_x, device=dev) * TILE).double().repeat(tiles_y)
+    y0 = (torch.arange(tiles_y, device=dev) * TILE).double() \
+        .repeat_interleave(tiles_x)
+    x1 = torch.clamp_max(x0 + TILE, img_w) - 1
+    y1 = torch.clamp_max(y0 + TILE, img_h) - 1
+    x0, x1, y0, y1 = (t[None, :, None] for t in (x0, x1, y0, y1))
+    a = A - CULL_DEFLATE * (A.abs() + B.abs())
+    c = C - CULL_DEFLATE * (C.abs() + B.abs())
+    finite = torch.isfinite(d).all(1, keepdim=True)
+    huge = (torch.maximum(mx.abs(), my.abs()) >= CULL_MAX_MEAN) \
+        | (torch.maximum(torch.maximum(A.abs(), B.abs()), C.abs())
+           >= CULL_MAX_CONIC)
+    pos_def = (a > 0) & (a * c - B * B > 0)
+    # as the kernels: the log of 255 o in float32, the rest in float64
+    tau = 2.0 * torch.log(255.0 * data[:, 5, None, :]).double() \
+        + CULL_TAU_SLACK
+    lx, hx, ly, hy = mx - x1, mx - x0, my - y1, my - y0
+
+    def edge_min(a, b, c, X, lo, hi):
+        y = torch.minimum(torch.maximum(-b * X / c, lo), hi)
+        return a * X * X + 2.0 * b * X * y + c * y * y
+
+    m = torch.minimum(
+        torch.minimum(edge_min(a, B, c, lx, ly, hy),
+                      edge_min(a, B, c, hx, ly, hy)),
+        torch.minimum(edge_min(c, B, a, ly, lx, hx),
+                      edge_min(c, B, a, hy, lx, hx)))
+    centre_in = (lx <= 0) & (hx >= 0) & (ly <= 0) & (hy >= 0)
+    hit = (tau >= 0) & (centre_in | (m <= tau))
+    return ~finite | ((o > 0) & (huge | ~pos_def | hit))
 
 
 def _render_blocks(R, n_elems):
@@ -184,8 +247,10 @@ def dense_bwd(data, bg, out, tfin, g_out, img_h: int, img_w: int):
     dgrad = torch.zeros_like(data)
     DENSE_BWD(data.data_ptr(), out.data_ptr(), g_out.data_ptr(),
               dgrad.data_ptr(), R, n_pad, chunk_of(n_pad), img_h, img_w)
-    # bg cotangent: sum over renders and pixels of T_final * g (as JAX)
-    dbg = torch.einsum("rp,rcp->c", tfin[:, 0, :], g_out)
+    # bg cotangent: sum over renders and pixels of T_final * g (as JAX), as
+    # R small matrix-vector products: the einsum of the plain version takes
+    # 3x as long on the card
+    dbg = torch.bmm(g_out, tfin.transpose(1, 2)).sum((0, 2))
     return dgrad, dbg
 
 
