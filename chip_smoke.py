@@ -14,9 +14,13 @@ Phases, all of them, in order; any failure exits non-zero:
    its route takes, and times both with CUDA events: the dense splat
    (object path; T and images bit for bit, also on a case built to meet
    the edges of its per-tile cull, whose plain twin must keep every pair
-   the card's plain walk does not skip), the binned splat (scene path) and
-   the streaming splat (eval and test-video path: the scene load, the
-   object orbit shape and a purpose case of its chunk rules).
+   the card's plain walk does not skip), the binned splat (scene path; T
+   and images bit for bit, also on a case built to meet the edges of its
+   per-warp cull, whose plain twin must keep every pair the card's plain
+   walk does not skip; the warp-column iterations of the first port's
+   rows and of the culled patches at the scene shape) and the streaming
+   splat (eval and test-video path: the scene load, the object orbit shape
+   and a purpose case of its chunk rules).
 4. train: on synthetic data through ``unipre3d_tpu_torch.train_network``,
    each under its own output directory: three full-width
    ``transformer_pretraining`` steps with their val loop, checkpoints and
@@ -179,17 +183,16 @@ def make_case(R, N, H, W, seed, device):
     return data.to(device), bg.to(device), g_out.to(device)
 
 
-def cull_edge_case(R, H, W, seed, device):
-    """A table [R,16,128] built to meet the edges of the dense kernels'
-    per-tile cull, one kind per render in turn: thin rotated ellipses
-    (large |B|), opacity 1 (the 0.99 cap), sub-pixel sigmas, centres
-    outside the image, and isotropic gaussians whose 1/255 level set
-    grazes a tile's corner pixel from outside (radius jittered by
-    +-1e-4). Returns (data, bg, g_out) like ``make_case``."""
+def cull_edge_gaussians(R, N, H, W, g, cell=(16, 16)):
+    """Projected gaussians built to meet the edges of the kernels' cull,
+    drawn from the generator ``g``, one kind per render in turn: thin
+    rotated ellipses (large |B|), opacity 1 (the 0.99 cap), sub-pixel
+    sigmas, centres outside the image, and isotropic gaussians whose 1/255
+    level set grazes a corner pixel of a ``cell`` (x, y) from outside (the
+    dense kernels' 16x16 tile, the binned kernels' 8x4 warp patch; radius
+    jittered by +-1e-4). Returns (mean2d, conic, color, opacity, depth,
+    radius (3 sigma), valid) like ``random_gaussians``."""
     import torch
-    from unipre3d_tpu_torch.ops.rasterizer.splat_dense import sorted_table
-    N = 128
-    g = torch.Generator().manual_seed(seed)
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(*s, generator=g)
     lu = lambda lo, hi, *s: torch.exp(u(math.log(lo), math.log(hi), *s))
     mean2d = torch.stack([u(-8, W + 8, R, N), u(-8, H + 8, R, N)], -1)
@@ -211,14 +214,15 @@ def cull_edge_case(R, H, W, seed, device):
                          torch.stack([out_x, out_y], -1), mean2d)
     sig = torch.where((kind == 3)[..., None], 2 * sig, sig)
     # corner-grazed: the level set o exp(-r^2 / 2 s^2) = 1/255 through a
-    # tile's corner pixel, the centre outside that tile
+    # cell's corner pixel, the centre outside that cell
     graze = kind == 4
     sig = torch.where(graze[..., None], sig[..., :1].expand(R, N, 2), sig)
     th = torch.where(graze, torch.zeros_like(th), th)
-    lim = torch.tensor([W // 16, H // 16])
-    corner = (torch.randint(1, 2 ** 20, (R, N, 2), generator=g) % lim) * 16 \
-        + torch.randint(0, 2, (R, N, 2), generator=g) * 15
-    sgn = torch.where(corner % 16 == 15, 1.0, -1.0)
+    cell = torch.tensor(cell)
+    lim = torch.tensor([W, H]) // cell
+    corner = (torch.randint(1, 2 ** 20, (R, N, 2), generator=g) % lim) \
+        * cell + torch.randint(0, 2, (R, N, 2), generator=g) * (cell - 1)
+    sgn = torch.where(corner % cell == cell - 1, 1.0, -1.0)
     ang = u(0.05, math.pi / 2 - 0.05, R, N)
     rad = sig[..., 0] * torch.sqrt(2 * torch.log(255 * opacity)) \
         * u(1 - 1e-4, 1 + 1e-4, R, N)
@@ -231,8 +235,22 @@ def cull_edge_case(R, H, W, seed, device):
     sxy = c * s * (sig[..., 0] ** 2 - sig[..., 1] ** 2)
     det = sxx * syy - sxy * sxy
     conic = torch.stack([syy / det, -sxy / det, sxx / det], -1)
-    data = sorted_table(mean2d, conic, u(0, 1, R, N, 3), opacity,
-                        u(0.5, 1.5, R, N), torch.ones(R, N, dtype=torch.bool))
+    mid = 0.5 * (sxx + syy)
+    radius = torch.ceil(3.0 * torch.sqrt(
+        mid + torch.sqrt(torch.clamp_min(mid * mid - det, 0.1))))
+    return (mean2d, conic, u(0, 1, R, N, 3), opacity, u(0.5, 1.5, R, N),
+            radius, torch.ones(R, N, dtype=torch.bool))
+
+
+def cull_edge_case(R, H, W, seed, device):
+    """A table [R,16,128] of ``cull_edge_gaussians`` aimed at the dense
+    kernels' 16x16 tiles. Returns (data, bg, g_out) like ``make_case``."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer.splat_dense import sorted_table
+    g = torch.Generator().manual_seed(seed)
+    mean2d, conic, color, opacity, depth, _, valid = cull_edge_gaussians(
+        R, 128, H, W, g)
+    data = sorted_table(mean2d, conic, color, opacity, depth, valid)
     bg = torch.tensor([0.1, 0.2, 0.3])
     g_out = torch.randn(R, 3, H * W, generator=g)
     return data.to(device), bg.to(device), g_out.to(device)
@@ -378,15 +396,18 @@ def phase_kernels(device):
 
 
 def binned_case(R, N, H, W, seed, device, invalid=0.0, dup_budget=None,
-                max_per_tile=4096):
-    """Random gaussians (``random_gaussians``) on the card, their sorted
-    duplicate list and table at the binned route's tiles, bg and a random
-    cotangent. Returns a dict."""
+                max_per_tile=4096, edges=False):
+    """Random gaussians (``random_gaussians``, or with ``edges``
+    ``cull_edge_gaussians`` aimed at the kernels' 4x8 warp patches) on the
+    card, their sorted duplicate list and table at the binned route's
+    tiles, bg and a random cotangent. Returns a dict."""
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
     from unipre3d_tpu_torch.ops.rasterizer.render import binned_tile
     g = torch.Generator().manual_seed(seed)
-    gs = [t.to(device) for t in random_gaussians(R, N, H, W, g, invalid)]
+    gs = cull_edge_gaussians(R, N, H, W, g, (sb.PATCH_W, sb.PATCH_H)) \
+        if edges else random_gaussians(R, N, H, W, g, invalid)
+    gs = [t.to(device) for t in gs]
     mean2d, conic, color, opacity, depth, radius, valid = gs
     th, tw = binned_tile(H, W)
     n_tiles = (H // th) * (W // tw)
@@ -404,28 +425,49 @@ def binned_case(R, N, H, W, seed, device, invalid=0.0, dup_budget=None,
 
 def binned_work(seg, table, R, H, W, th, tw, maxn):
     """What this run's data needs of the binned kernels, from the plain
-    version's walk: (contributing (pixel, duplicate) pairs, table columns a
-    tile must read: in each 1024-chunk of its capped list those up to the
-    one where its last pixel stops, columns within the per-tile caps)."""
+    version's walk, and what their per-warp cull makes of it, as a dict:
+    ``pairs`` contributing (pixel, duplicate) pairs; ``cols`` table columns
+    a tile must read (in each 1024-chunk of its capped list those up to the
+    one where its last pixel stops) of ``capped`` within the caps;
+    warp-column iterations (a warp walks a column while some pixel of it
+    has not stopped in the chunk) of 1x32 pixel rows walking every column
+    (``iters_rows``, the first port's kernels) and of the kernels' warp
+    patches walking the columns that the cull's plain twin keeps
+    (``iters_patches``); ``live`` pairs the walk does not skip (alpha !=
+    0), ``missed`` of them dropped by the twin for the pixel's warp."""
     import torch
+    import torch.nn.functional as F
     from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
     from unipre3d_tpu_torch.ops.rasterizer.pack import LOG_T_EPS
-    px, py, _ = sb._tile_pixels(R, H, W, th, tw, table.device)
+    dev = table.device
+    px, py, _ = sb._tile_pixels(R, H, W, th, tw, dev)
     count = (seg[1:] - seg[:-1]).long().clamp(max=maxn)
-    pairs = torch.zeros((), dtype=torch.int64, device=table.device)
-    cols = torch.zeros((), dtype=torch.int64, device=table.device)
+    bits = F.pad(sb.patch_survivors_ref(seg, table, R, H, W, th, tw, maxn),
+                 (0, 1))                                # + the dump column
+    warp = sb.warp_of_pixel(th, tw).to(dev)
+    shift = torch.arange(int(warp.max()) + 1, device=dev)
+    rows = F.one_hot(torch.arange(th * tw, device=dev) // 32).float()
+    patches = F.one_hot(warp).float()
+    n = {k: torch.zeros((), dtype=torch.int64, device=dev) for k in (
+        "pairs", "cols", "iters_rows", "iters_patches", "live", "missed")}
     log_t = torch.zeros_like(px)
     stopped = torch.zeros_like(px, dtype=torch.bool)
-    for j, (_, _, terms, log_t_after) in enumerate(
+    for j, (col, _, terms, log_t_after) in enumerate(
             sb._walk(seg, sb._padded(table), px, py, maxn)):
         alpha, skip, contrib = terms[0], terms[4], terms[5]
         if j % sb.CHUNK == 0:
             stopped = torch.zeros_like(stopped)
-        cols += ((j < count) & ~stopped.all(1)).sum()
+        walking = (~stopped & (j < count)[:, None]).float()
+        n["cols"] += ((j < count) & ~stopped.all(1)).sum()
+        n["iters_rows"] += ((walking @ rows) > 0).sum()
+        kept = (bits[col][:, None] >> shift) & 1
+        n["iters_patches"] += (((walking @ patches) > 0) & (kept == 1)).sum()
+        n["live"] += (~skip).sum()
+        n["missed"] += (~skip & ((bits[col][:, None] >> warp) & 1 == 0)).sum()
         stopped = stopped | (~skip & (log_t + torch.log1p(-alpha) < LOG_T_EPS))
         log_t = log_t_after
-        pairs += contrib.sum()
-    return int(pairs), int(cols), int(count.sum())
+        n["pairs"] += contrib.sum()
+    return {"capped": int(count.sum()), **{k: int(v) for k, v in n.items()}}
 
 
 def fully_dropped(dup, maxn, n_rows):
@@ -442,20 +484,26 @@ def fully_dropped(dup, maxn, n_rows):
 
 
 def phase_binned_kernels(device):
-    """The binned kernels against their plain versions at three shapes: the
+    """The binned kernels against their plain versions at four shapes: the
     scene renderer's load (8 views, 84,096 valid gaussians, 120x160), a
-    case past the per-tile cap and the budget, and a small case whose tiles
-    hold more than 1024 duplicates (chunk re-arm)."""
+    case past the per-tile cap and the budget, a small case whose tiles
+    hold more than 1024 duplicates (chunk re-arm), and a case built to meet
+    the edges of the kernels' per-warp cull (``cull_edge_gaussians`` at the
+    scene's shape, two renders of each kind), whose plain twin must keep
+    every pair the card's plain walk does not skip. T and images bit for
+    bit, gradients to TOL_GRAD."""
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
 
     shapes = [  # (label, R, N, H, W, invalid, budget, max_per_tile)
         ("scene", 8, 84096, 120, 160, 0.0, None, 4096),
         ("overflow", 2, 20000, 120, 160, 0.1, 160 * 1024, 1024),
-        ("re-arm", 1, 3000, 32, 32, 0.1, None, 4096)]
+        ("re-arm", 1, 3000, 32, 32, 0.1, None, 4096),
+        ("cull edges", 10, 512, 120, 160, 0.0, 48 * 1024, 4096)]
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
     for si, (label, R, N, H, W, invalid, budget, cap) in enumerate(shapes):
-        c = binned_case(R, N, H, W, 100 + si, device, invalid, budget, cap)
+        c = binned_case(R, N, H, W, 100 + si, device, invalid, budget, cap,
+                        edges=label == "cull edges")
         seg, table, bg, g_out = c["dup"].seg, c["table"], c["bg"], c["g_out"]
         th, tw, maxn = c["th"], c["tw"], c["maxn"]
         args = (R, H, W, th, tw, maxn)
@@ -469,6 +517,7 @@ def phase_binned_kernels(device):
         err_out = float((out - out_r).abs().max())
         err_t = float((torch.exp(logt) - torch.exp(logt_r)).abs().max())
         t_mismatch = int((logt != logt_r).sum())
+        img_mismatch = int((out != out_r).sum())
         row_err = [float((dgrad[k] - dgrad_r[k]).abs().max()
                          / (dgrad_r[k].abs().max() + 1e-12))
                    for k in range(9)]
@@ -477,12 +526,14 @@ def phase_binned_kernels(device):
             f"cap {maxn} budget {c['budget']}: {c['dups']} duplicates "
             f"(budget dropped {c['budget_dropped']}, cap dropped "
             f"{c['cap_dropped']}); fwd max|err| out {err_out:.3e} T "
-            f"{err_t:.3e} (T bit-mismatches {t_mismatch}) tol {TOL_IMAGE:g}; "
+            f"{err_t:.3e} (bit-mismatches T {t_mismatch}, images "
+            f"{img_mismatch}; must be 0) tol {TOL_IMAGE:g}; "
             f"bwd max rel err per row {max(row_err):.3e} "
             f"({', '.join(f'{e:.1e}' for e in row_err)}) tol {TOL_GRAD:g}; "
             f"bwd max|err| {abs_bwd:.3e}")
         if not (err_out <= TOL_IMAGE and err_t <= TOL_IMAGE
-                and t_mismatch == 0 and max(row_err) <= TOL_GRAD):
+                and t_mismatch == 0 and img_mismatch == 0
+                and max(row_err) <= TOL_GRAD):
             raise AssertionError(f"binned kernel disagrees with its plain "
                                  f"version ({label})")
         results["fwd_err"] = max(results["fwd_err"], err_out, err_t)
@@ -510,6 +561,20 @@ def phase_binned_kernels(device):
                 f"the dropped {zero}")
             if not (finite and zero):
                 raise AssertionError("binned gradients past the cap")
+        if label in ("scene", "cull edges"):
+            # the cull's plain twin keeps every pair the card's plain walk
+            # does not skip; the warp-column iterations of the first port's
+            # rows and of the kernels' culled patches
+            work = binned_work(seg, table, *args)
+            log(f"[kernels] binned {label}: {work['live']} pairs not skipped "
+                f"by the plain walk, dropped by the twin of the per-warp "
+                f"cull {work['missed']} (must be 0); warp-column iterations "
+                f"{work['iters_rows']} in 1x32 rows unculled (the first "
+                f"port), {work['iters_patches']} in 4x8 patches culled "
+                f"({work['iters_rows'] / max(work['iters_patches'], 1):.2f}x"
+                f" fewer); {work['pairs']} contributing pairs")
+            if work["missed"]:
+                raise AssertionError("the per-warp cull drops live pairs")
         if label == "scene":
             it_k = 20
             ms_f = cuda_ms(lambda: sb.binned_fwd(seg, table, bg, *args), it_k)
@@ -518,7 +583,8 @@ def phase_binned_kernels(device):
             pms_f = cuda_ms(lambda: sb.binned_fwd_ref(seg, table, bg, *args), 1)
             pms_b = cuda_ms(lambda: sb.binned_bwd_ref(
                 seg, table, bg, logt_r, tot, g_out, *args), 1)
-            pairs, cols, capped = binned_work(seg, table, *args)
+            pairs, cols, capped = (work[k] for k in ("pairs", "cols",
+                                                     "capped"))
             # bytes: rows 0-8 of the table columns the data needs (each
             # chunk up to its tile's last stop; the rest of a tile's list,
             # the duplicates past its cap, are never read) and seg, read

@@ -63,17 +63,16 @@ def rel_err(ref, got):
     return float((got - ref).abs().max() / (ref.abs().max() + 1e-12))
 
 
-def cull_case(name):
-    """Tables [R,16,N_pad] + image size for the cull's twin: the kernel
-    tests' random gaussians (chip_smoke.py's random_gaussians in numpy) and
-    cases built to meet the cull's edges."""
-    H = W = 128
-    if name in ("random", "multi_chunk_600"):
-        R, N = (4, 128) if name == "random" else (2, 600)
-        H = W = 128 if name == "random" else 64
-        return sd.sorted_table(*gaussians(R, N, H, W, seed=11)), H, W
+def edge_gaussians(name, H, W, cell=(16, 16), R=4, N=128):
+    """Gaussians built to meet the edges of the kernels' cull (numpy
+    seeded by ``name``): mean2d, conic, color, opacity, depth and the
+    3-sigma radius (the preprocess' formula), each [R, N, ...] float32.
+    Kinds: thin rotated ellipses (large |B|), opacity 1 (the 0.99 cap),
+    sub-pixel sigmas, centres outside the image, and isotropic gaussians
+    whose 1/255 level set grazes a corner pixel of a ``cell`` (the dense
+    kernels' 16x16 tile, the binned kernels' 8x4 (x, y) warp patch) from
+    outside, the radius jittered by +-1e-4."""
     rng = np.random.default_rng(sum(map(ord, name)))
-    R, N = 4, 128
     mean2d = rng.uniform(-8, W + 8, (R, N, 2))
     sig = np.exp(rng.uniform(np.log(0.7), np.log(20.0), (R, N, 2)))
     th = rng.uniform(0, np.pi, (R, N))
@@ -98,25 +97,43 @@ def cull_case(name):
     syy = (s * sig[..., 0]) ** 2 + (c * sig[..., 1]) ** 2
     sxy = c * s * (sig[..., 0] ** 2 - sig[..., 1] ** 2)
     if name == "corner_grazed":
-        # isotropic, the 1/255 level set through a tile's corner pixel
-        # (x, y) from outside the tile, the radius jittered by +-1e-4
+        # isotropic, the 1/255 level set through a cell's corner pixel
+        # (x, y) from outside the cell, the radius jittered by +-1e-4
         sxx = syy = sig[..., 0] ** 2
         sxy = np.zeros_like(sxx)
-        corner = rng.integers(1, 7, (R, N, 2)) * 16 + rng.integers(
-            0, 2, (R, N, 2)) * 15 - 16
+        cell = np.asarray(cell)
+        corner = rng.integers(1, 7, (R, N, 2)) * cell + rng.integers(
+            0, 2, (R, N, 2)) * (cell - 1) - cell
         ang = rng.uniform(0.05, np.pi / 2 - 0.05, (R, N))
-        sgn = np.where(corner % 16 == 15, 1.0, -1.0)
+        sgn = np.where(corner % cell == cell - 1, 1.0, -1.0)
         rad = sig[..., 0] * np.sqrt(2 * np.log(255 * opacity)) \
             * (1 + rng.uniform(-1e-4, 1e-4, (R, N)))
         mean2d = corner + sgn * np.stack([np.cos(ang), np.sin(ang)], -1) \
             * rad[..., None]
     det = sxx * syy - sxy * sxy
     conic = np.stack([syy / det, -sxy / det, sxx / det], -1)
+    mid = 0.5 * (sxx + syy)
+    radius = np.ceil(3.0 * np.sqrt(
+        mid + np.sqrt(np.maximum(mid * mid - det, 0.1))))
     f = lambda a: torch.tensor(a, dtype=torch.float32)
     color = rng.uniform(0, 1, (R, N, 3))
     depth = rng.uniform(0.5, 1.5, (R, N))
-    return sd.sorted_table(f(mean2d), f(conic), f(color), f(opacity),
-                           f(depth), torch.ones(R, N, dtype=torch.bool)), H, W
+    return (f(mean2d), f(conic), f(color), f(opacity), f(depth),
+            f(radius))
+
+
+def cull_case(name):
+    """Tables [R,16,N_pad] + image size for the dense kernels' cull: the
+    kernel tests' random gaussians (chip_smoke.py's random_gaussians in
+    numpy) and cases built to meet the cull's edges (``edge_gaussians``)."""
+    H = W = 128
+    if name in ("random", "multi_chunk_600"):
+        R, N = (4, 128) if name == "random" else (2, 600)
+        H = W = 128 if name == "random" else 64
+        return sd.sorted_table(*gaussians(R, N, H, W, seed=11)), H, W
+    mean2d, conic, color, opacity, depth, _ = edge_gaussians(name, H, W)
+    return sd.sorted_table(mean2d, conic, color, opacity, depth,
+                           torch.ones(opacity.shape, dtype=torch.bool)), H, W
 
 
 CULL_CASES = ["random", "thin_rotated", "opacity_one", "sub_pixel",
@@ -227,20 +244,45 @@ def binned_inputs(R, N, H, W, seed, device, tile=(8, 32)):
                                    radius, valid)]
 
 
-@pytest.mark.cuda
-@pytest.mark.parametrize("R,N,H,W,cap,budget", [
-    (2, 4000, 64, 64, 4096, None),      # lists past 1024: chunk re-arm
-    (1, 3000, 64, 64, 1024, None),      # tiles cut at the cap
-    (2, 2000, 48, 64, 4096, 4096)])     # duplicate budget overflow
-def test_binned_kernels_match_plain_versions(cuda, R, N, H, W, cap, budget):
-    ins = binned_inputs(R, N, H, W, seed=N + R, device=cuda)
-    th, tw = 8, 32
+def binned_cull_case(name):
+    """Inputs of the binned splat built to meet the edges of its per-warp
+    cull: (mean2d, conic, color, opacity, depth, radius, valid) [R, N, ...],
+    H, W, tile_h, tile_w. At the scene's 120x160 with 8x32 tiles (4x8 warp
+    patches): random gaussians and the edge kinds of ``edge_gaussians``
+    grazing patch corners; a tile list past 1024 duplicates (the re-arm,
+    16x16 tiles); 32x4 tiles, whose warps own 32 pixels in row-major order
+    (8 rows of 4)."""
+    if name == "random":
+        return binned_inputs(2, 2000, 120, 160, seed=12, device="cpu"), \
+            120, 160, 8, 32
+    if name == "rearm":
+        return binned_inputs(1, 3000, 32, 32, seed=13, device="cpu"), \
+            32, 32, 16, 16
+    if name == "rows":
+        return binned_inputs(1, 400, 32, 36, seed=14, device="cpu"), \
+            32, 36, 32, 4
+    ins = edge_gaussians(name, 120, 160, cell=(8, 4), R=2, N=256)
+    return [*ins, torch.ones(ins[3].shape, dtype=torch.bool)], 120, 160, 8, 32
+
+
+BINNED_CULL_CASES = ["random", "thin_rotated", "opacity_one", "sub_pixel",
+                     "centres_outside", "corner_grazed", "rearm", "rows"]
+
+
+def binned_prep(ins, H, W, th, tw, budget=None):
+    """The sorted duplicate list and table of binned inputs."""
+    N = ins[0].shape[1]
     budget = budget or sb.default_dup_budget(N, (H // th) * (W // tw))
     dup = sb.prep_duplicates(ins[0], ins[5], ins[4], ins[6], H, W, th, tw,
                              budget)
-    table = sb.gaussian_rows(*ins[:4], ins[6])[dup.gid].t().contiguous()
-    bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
-    g_out = torch.randn(R, 3, H, W, device=cuda)
+    return dup, sb.gaussian_rows(*ins[:4], ins[6])[dup.gid].t().contiguous()
+
+
+def check_binned_kernels(dup, table, R, H, W, th, tw, cap, device):
+    """Both binned kernels against their plain versions: T and the images
+    bit for bit, gradient rows to 1e-4 relative."""
+    bg = torch.tensor([0.1, 0.2, 0.3], device=device)
+    g_out = torch.randn(R, 3, H, W, device=device)
     args = (R, H, W, th, tw, cap)
     out, logt = sb.binned_fwd(dup.seg, table, bg, *args)
     tot = (g_out * (out - bg.reshape(1, 3, 1, 1)
@@ -249,14 +291,38 @@ def test_binned_kernels_match_plain_versions(cuda, R, N, H, W, cap, budget):
     out_r, logt_r = sb.binned_fwd_ref(dup.seg, table, bg, *args)
     dgrad_r = sb.binned_bwd_ref(dup.seg, table, bg, logt_r, tot, g_out, *args)
     torch.cuda.synchronize()
+    assert torch.equal(out, out_r)
+    assert torch.equal(logt, logt_r)
+    for k in range(9):
+        assert rel_err(dgrad_r[k], dgrad[k]) < 1e-4, k
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", BINNED_CULL_CASES)
+def test_binned_kernels_match_plain_versions_at_the_cull_edges(cuda, case):
+    """The edge cases of the binned kernels' per-warp cull
+    (``binned_cull_case``): T and images bit for bit, since the cull drops
+    only pairs the walk skips at every pixel of the warp's patch."""
+    ins, H, W, th, tw = binned_cull_case(case)
+    dup, table = binned_prep([t.to(cuda) for t in ins], H, W, th, tw)
+    check_binned_kernels(dup, table, ins[0].shape[0], H, W, th, tw, 4096,
+                         cuda)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("R,N,H,W,cap,budget", [
+    (2, 4000, 64, 64, 4096, None),      # lists past 1024: chunk re-arm
+    (1, 3000, 64, 64, 1024, None),      # tiles cut at the cap
+    (2, 2000, 48, 64, 4096, 4096)])     # duplicate budget overflow
+def test_binned_kernels_match_plain_versions(cuda, R, N, H, W, cap, budget):
+    ins = binned_inputs(R, N, H, W, seed=N + R, device=cuda)
+    th, tw = 8, 32
+    dup, table = binned_prep(ins, H, W, th, tw, budget)
     if budget == 4096:
         assert int(dup.span_sum.sum()) > dup.gid.shape[0]
     else:
         assert int((dup.seg[1:] - dup.seg[:-1]).max()) > 1024
-    assert float((out - out_r).abs().max()) < 1e-4
-    assert torch.equal(logt, logt_r)
-    for k in range(9):
-        assert rel_err(dgrad_r[k], dgrad[k]) < 1e-4, k
+    check_binned_kernels(dup, table, R, H, W, th, tw, cap, cuda)
 
 
 @pytest.mark.cuda

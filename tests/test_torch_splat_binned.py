@@ -37,7 +37,9 @@ from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu_torch.ops.rasterizer.render import \
     rasterize_projected_reference
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_kernels_cuda import (BINNED_CULL_CASES, binned_cull_case,
+                                     binned_prep)
+from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
 
 FOV = math.radians(49.13)
 RES = 32
@@ -283,3 +285,32 @@ def test_cut_tiles_port_gradient_is_its_forward_derivative(cut_case):
             else:
                 assert abs(fd - float(grad)) <= 2e-2 * abs(float(grad)) + 1e-3, \
                     (field, i, fd, float(grad))
+
+
+@pytest.mark.parametrize("case", BINNED_CULL_CASES)
+def test_patch_cull_twin_is_conservative(case, one_torch_thread):
+    """Every (render, pixel, duplicate) pair the plain walk does not skip
+    (alpha != 0) is kept, in the twin of the kernels' per-warp cull, for
+    the warp that owns the pixel, so the culled kernels walk every pair
+    that matters; and the cull culls."""
+    ins, H, W, th, tw = binned_cull_case(case)
+    dup, table = binned_prep(ins, H, W, th, tw)
+    R, cap = ins[0].shape[0], 4096
+    counts = (dup.seg[1:] - dup.seg[:-1]).long()
+    if case == "rearm":
+        assert int(counts.max()) > sb.CHUNK
+    bits = torch.nn.functional.pad(sb.patch_survivors_ref(
+        dup.seg, table, R, H, W, th, tw, cap), (0, 1))  # + the dump column
+    warp = sb.warp_of_pixel(th, tw)
+    px, py, _ = sb._tile_pixels(R, H, W, th, tw, table.device)
+    missed = live_pairs = 0
+    for col, _, terms, _ in sb._walk(dup.seg, sb._padded(table), px, py,
+                                     cap):
+        live = ~terms[4]                                     # [blocks, P]
+        kept = (bits[col][:, None] >> warp) & 1
+        missed += int((live & (kept == 0)).sum())
+        live_pairs += int(live.sum())
+    assert missed == 0 and live_pairs > 0
+    n_warps = int(warp.max()) + 1
+    kept = sum(int(((bits >> w) & 1).sum()) for w in range(n_warps))
+    assert kept < 0.9 * int(counts.clamp(max=cap).sum()) * n_warps

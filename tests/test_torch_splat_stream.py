@@ -38,22 +38,10 @@ from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu_torch.ops.rasterizer.render import (
     rasterize_projected, rasterize_projected_reference)
 from test_torch_splat_binned import FIELDS, projected
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
 
 RES = 32
 TILE = 8          # 16 tiles of 8x8
-
-
-@pytest.fixture(scope="module")
-def one_torch_thread():
-    """One intra-op torch thread while a module's tests that ask for it run:
-    the suite runs several test processes on the host's cores at once,
-    where torch's own thread pool would oversubscribe them (its small ops
-    gain nothing from more threads)."""
-    n = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(n)
 
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")

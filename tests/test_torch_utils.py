@@ -4,7 +4,8 @@ Same numpy inputs through both; float32 on the CPU. Tolerances: 1e-6
 absolute for elementwise maths of O(1) values (float32 rounding of
 reassociated expressions), 1e-5 relative for means over images.
 
-Also the heap fixture every port test module takes (``trimmed_heap``).
+Also the heap fixture every port test module takes (``trimmed_heap``) and
+the thread fixture of the torch-heavy ones (``one_torch_thread``).
 """
 
 import ctypes
@@ -44,6 +45,18 @@ def trimmed_heap():
     this fixture."""
     yield
     release_memory()
+
+
+@pytest.fixture(scope="module")
+def one_torch_thread():
+    """One intra-op torch thread while a module's tests that ask for it run:
+    the suite runs several test processes on the host's cores at once,
+    where torch's own thread pool would oversubscribe them (its small ops
+    gain nothing from more threads)."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(n)
 
 
 def test_config_matches_jax_except_tpu_block():

@@ -7,16 +7,14 @@
 Each source (default: unipre3d_tpu_torch/csrc/splat_dense.cu) exports the C
 entry points ``dense_splat_fwd`` / ``dense_splat_bwd`` of that file (the
 parent commit's version of it, or a copy edited to take one piece out, to
-attribute time to it). Each is compiled with nvcc with the package's flags
-into a temporary directory (all at once) and loaded with ctypes. At
-chip_smoke.py's main shape (R = 128 renders of N = 128 random gaussians at
-128x128, ``make_case`` seed 0) each source's forward launch and backward
-launch (with the zeroing of its output) are timed with CUDA events over
-50 launches after a warm-up, the sources in the order A B ... and
-then reversed, ``--rounds`` times, so that they compare within one call on
-one card. Each source's forward is held to the plain version (bit
-mismatches of T and of the images) and its backward to the plain gradients
-(largest relative error over the nine rows). Also times the package's
+attribute time to it). At chip_smoke.py's main shape (R = 128 renders of
+N = 128 random gaussians at 128x128, ``make_case`` seed 0) each source's
+forward launch and backward launch (with the zeroing of its output) are
+timed with CUDA events over 50 launches after a warm-up, in turns with the
+other sources (tools/variant_timing.py), ``--rounds`` times. Each source's
+forward is held to the plain version (bit mismatches of T and of the
+images) and its backward to the plain gradients (largest relative error
+over the nine rows). Also times the package's
 wrappers ``dense_fwd`` / ``dense_bwd`` (allocation, checks and the
 background's cotangent around its own build) and that cotangent's
 reduction alone in three forms. Prints one JSON line for the wrappers and
@@ -27,40 +25,14 @@ and power limit; ``--out`` also writes them to a file.
 from __future__ import annotations
 
 import argparse
-import ctypes
-import json
 import os
-import statistics
-import subprocess
 import sys
 import tempfile
-from concurrent.futures import ThreadPoolExecutor
+
+import variant_timing as vt
 
 ITERS = 50
-ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
-sys.path.insert(0, ROOT)
-
-
-def build(src, out_dir, i):
-    from unipre3d_tpu_torch import kernels
-    so = os.path.join(out_dir, f"v{i}.so")
-    proc = subprocess.run([kernels._nvcc(), *kernels.NVCC_FLAGS, "-o", so,
-                           src], stdout=subprocess.PIPE,
-                          stderr=subprocess.STDOUT, text=True)
-    if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed for {src}:\n{proc.stdout}")
-    lib = ctypes.CDLL(so)
-    fns = []
-    for name in ("dense_splat_fwd", "dense_splat_bwd"):
-        fn = getattr(lib, name)
-        fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 5 \
-            + [ctypes.c_void_p]
-        fn.restype = ctypes.c_int
-        fns.append(fn)
-    report = [ln.strip() for ln in proc.stdout.splitlines()
-              if any(k in ln for k in ("Compiling entry", "registers",
-                                       "spill"))]
-    return fns, report
+sys.path.insert(0, vt.ROOT)
 
 
 def runners(fwd, bwd, data, bg, out_r, g_out, ints):
@@ -72,17 +44,16 @@ def runners(fwd, bwd, data, bg, out_r, g_out, ints):
     out = torch.empty(R, 3, H * W, device=data.device)
     tfin = torch.empty(R, 1, H * W, device=data.device)
     dgrad = torch.zeros_like(data)
-    stream = lambda: ctypes.c_void_p(torch.cuda.current_stream().cuda_stream)
 
     def run_fwd():
         err = fwd(data.data_ptr(), bg.data_ptr(), out.data_ptr(),
-                  tfin.data_ptr(), *ints, stream())
+                  tfin.data_ptr(), *ints, vt.stream_arg())
         assert err == 0, err
 
     def run_bwd():
         dgrad.zero_()
         err = bwd(data.data_ptr(), out_r.data_ptr(), g_out.data_ptr(),
-                  dgrad.data_ptr(), *ints, stream())
+                  dgrad.data_ptr(), *ints, vt.stream_arg())
         assert err == 0, err
 
     return run_fwd, run_bwd, out, tfin, dgrad
@@ -91,7 +62,7 @@ def runners(fwd, bwd, data, bg, out_r, g_out, ints):
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("sources", nargs="*", default=[os.path.join(
-        ROOT, "unipre3d_tpu_torch", "csrc", "splat_dense.cu")])
+        vt.ROOT, "unipre3d_tpu_torch", "csrc", "splat_dense.cu")])
     ap.add_argument("--rounds", type=int, default=2)
     ap.add_argument("--out")
     args = ap.parse_args(argv)
@@ -112,11 +83,10 @@ def main(argv=None):
     dgrad_r, _ = sd.dense_splat_bwd_ref(data, bg, tfin_r, g_out, H, W)
 
     with tempfile.TemporaryDirectory(prefix="dense_variants_") as tmp:
-        with ThreadPoolExecutor(len(args.sources)) as pool:
-            built = list(pool.map(lambda a: build(a[1], tmp, a[0]),
-                                  enumerate(args.sources)))
+        built = vt.build_all(args.sources, tmp, [
+            ("dense_splat_fwd", 4, 5), ("dense_splat_bwd", 4, 5)])
         rows = []
-        for src, ((fwd, bwd), report) in zip(args.sources, built):
+        for src, ((fwd, bwd), ptxas) in zip(args.sources, built):
             run_fwd, run_bwd, out, tfin, dgrad = runners(
                 fwd, bwd, data, bg, out_r, g_out, (R, n_pad, chunk, H, W))
             run_fwd()
@@ -126,17 +96,10 @@ def main(argv=None):
                             / (dgrad_r[:, k].abs().max() + 1e-12))
                       for k in range(9))
             rows.append(dict(
-                source=os.path.relpath(os.path.abspath(src), ROOT),
-                ptxas=report, fwd=run_fwd, bwd=run_bwd, fwd_ms=[], bwd_ms=[],
-                t_mismatch=int((tfin != tfin_r).sum()),
+                source=vt.source_name(src), ptxas=ptxas, fwd=run_fwd,
+                bwd=run_bwd, t_mismatch=int((tfin != tfin_r).sum()),
                 img_mismatch=int((out != out_r).sum()), bwd_rel_err=rel))
-        for rnd in range(args.rounds):
-            order = rows if rnd % 2 == 0 else rows[::-1]
-            for row in order:
-                row["fwd_ms"].append(chip_smoke.cuda_ms(row["fwd"],
-                                                        ITERS))
-                row["bwd_ms"].append(chip_smoke.cuda_ms(row["bwd"],
-                                                        ITERS))
+        vt.time_rounds(rows, args.rounds, ITERS)
         # the package's wrappers (allocation, checks, the dbg reduction)
         # around its own build, and the dbg reduction alone in three forms
         out_w, tfin_w = sd.dense_fwd(data, bg, H, W)
@@ -154,19 +117,8 @@ def main(argv=None):
                 ITERS),
             dbg_mul_sum_ms=chip_smoke.cuda_ms(
                 lambda: (g_out * tfin_w).sum((0, 2)), ITERS))
-    lines = [json.dumps(wrapper)]
-    print(lines[-1], flush=True)
-    for row in rows:
-        del row["fwd"], row["bwd"]
-        row.update(shape=dict(R=R, N=N, H=H, W=W), card=smi,
-                   fwd_median_ms=statistics.median(row["fwd_ms"]),
-                   bwd_median_ms=statistics.median(row["bwd_ms"]))
-        lines.append(json.dumps(row))
-        print(lines[-1], flush=True)
-    if args.out:
-        os.makedirs(os.path.dirname(os.path.abspath(args.out)), exist_ok=True)
-        with open(args.out, "w") as f:
-            f.write("\n".join(lines) + "\n")
+    vt.report(rows, args.out, head=[wrapper],
+              shape=dict(R=R, N=N, H=H, W=W), card=smi)
     return 0
 
 

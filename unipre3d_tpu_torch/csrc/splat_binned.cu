@@ -23,56 +23,83 @@
 //     through alpha only where alpha < 0.99, 1 - alpha clamped at 1e-6.
 // Every operation that decides a skip or a stop (the EWA power, alpha,
 // log T) is rounded op by op in the plain version's order (no FMA
-// contraction), with expf/log1pf as torch's own CUDA exp/log1p, so the
-// kernel and the plain version agree on T bit for bit.
+// contraction), with expf/log1pf as torch's own CUDA exp/log1p, and so are
+// the colour sums, so the kernel and the plain version agree on T and the
+// images bit for bit. Only values that feed the gradient alone take fast
+// intrinsics: the backward's T before the duplicate (__expf) and its
+// division by max(1 - alpha, 1e-6) (__fdividef).
 //
-// Launch: one CTA of 256 threads per (render, tile), one thread per pixel
-// (tiles of at most 256 pixels; 8x32 at the scene's 120x160). The CTA
-// stages its range of the table in batches of 256 duplicates (9 KB of
-// shared memory); every thread walks a batch front to back. The CTA leaves
-// a chunk early once every pixel has stopped in it, and re-arms at the
-// next chunk.
+// Launch: one CTA of one warp per (render, tile, warp patch), one lane per
+// pixel (tiles of at most 256 pixels; 8x32 at the scene's 120x160, 16x16
+// at the object renders' 128x128). A warp owns a compact 4x8 patch of the
+// tile where 4 divides the tile's height and 8 its width, else 32 pixels
+// of the tile in row-major order. It takes its tile's list 32 columns at a
+// time: each lane loads one column and culls it against the warp's pixel
+// rectangle (rect_keeps, splat_common.cuh; the plain twin is
+// splat_binned.py:patch_survivors_ref), the kept columns are compacted in
+// depth order (ballot + popc) into 48-byte records in shared memory, and
+// the warp walks them. A culled pair is skipped by the walk at every pixel
+// of the patch, so it neither adds colour nor stops a pixel: the stop
+// decisions, the re-arm (counted on list positions) and the cap are the
+// unculled walk's. A warp leaves a chunk once all its pixels have stopped
+// in it.
 //
-// What bounds it on the H100: a table column is read at most once (by the
-// one CTA of its tile), and only up to where the tile's last pixel stops
-// in each chunk, so the bytes are small; per contributing (pixel,
-// duplicate) pair the forward does ~24 FP32 operations and three
-// transcendentals (exp of the power, log1p, exp of log T), the backward
-// about three times that plus a warp reduction of nine terms. At the
-// scene load the transcendentals bound both kernels (chip_smoke.py's
-// bound_ms). What holds the kernels far above it is the per-pixel serial
-// walk: one thread walks its pixel's whole list. The
-// design keeps the batch in shared memory (broadcast reads: all threads
-// read the same column), does no per-pair global traffic, and stops a
-// pixel, and a whole chunk, as soon as it saturates.
+// What bounds it on the H100: per contributing (pixel, duplicate) pair the
+// forward does ~24 FP32 operations and three transcendentals (exp of the
+// power, log1p, exp of log T), the backward about three times that plus a
+// share of the warp reduction; at the scene load the transcendentals bound
+// both kernels (chip_smoke.py's bound_ms), and the bytes are small (a
+// column is read by the up to 8 warps of its tile, from L2). What the
+// kernels spend is instruction issue on warp-column steps (~95
+// instructions a column in the forward, log1pf alone ~25), and the first
+// port took 4.5x as many steps as the 4x8 patches over the cull's
+// survivors (chip_smoke.py prints both counts). One warp a CTA: a CTA of a
+// whole tile held its SM slot until its busiest warp was done, and the
+// 600 CTAs of the scene shape ran in two uneven waves; warps are scheduled
+// one by one. The cost is that each warp loads and tests the columns it
+// walks itself (up to 8 times a column, from L2). No minimum of CTAs an SM
+// is asked of the compiler: 72 registers forward, 64 backward, no spill;
+// bounds of 16-28 warps an SM measured no faster
+// (tools/time_binned_kernels.py, PERF.md).
 //
 // Backward reduction: each duplicate belongs to exactly one tile, so its
-// gradient row is the sum over one CTA's pixels: warp shuffles (skipped
-// when no lane of the warp touched the duplicate), a shared [9, 256]
-// accumulator (one shared atomicAdd per warp), then one plain store per
-// row and duplicate, no global atomics. The per-gaussian sum over a
-// gaussian's duplicates is an index_add_ in the wrapper (the JAX package's
-// XLA scatter-add).
+// gradient row sums the pixels of the tile's up to 8 warps. A warp that
+// touched a column reduces its nine terms with the 14-shuffle
+// reduce-scatter of splat_common.cuh and nine lanes add them to the
+// column's rows of dgrad with global atomics (dgrad zeroed by the wrapper,
+// so an untouched or dropped duplicate keeps a zero row). Atomic order
+// changes from run to run: gradients agree with the plain version to float
+// rounding of the sum order. The per-gaussian sum over a gaussian's
+// duplicates is an index_add_ in the wrapper (the JAX package's XLA
+// scatter-add).
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "splat_common.cuh"
 
 namespace {
 
-constexpr int THREADS = 256;  // at most 256 pixels a tile
-constexpr int CHUNK = 1024;   // the T re-arm boundary of a tile's list
-constexpr int BATCH = 256;    // duplicates staged in shared memory at a time
+using namespace splat;
+
+constexpr int TILE_PIXELS = 256;  // at most 256 pixels a tile
+constexpr int PATCH_H = 4;          // a warp's patch of the tile
+constexpr int PATCH_W = 8;
+constexpr int CHUNK = 1024;         // the T re-arm boundary of a tile's list
 constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
-constexpr unsigned FULL = 0xffffffffu;
 
-// EWA power -0.5 (A dx^2 + C dy^2) - B dx dy, op by op without contraction
-__device__ __forceinline__ float ewa_power(float A, float B, float C, float dx,
-                                          float dy) {
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(A, dx), dx),
-                            __fmul_rn(__fmul_rn(C, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(B, dx), dy));
+// 4x8 patches where 4 divides the tile's height and 8 its width, else 32
+// pixels of the tile in row-major order
+__device__ __forceinline__ bool patches(int tile_h, int tile_w) {
+  return tile_h % PATCH_H == 0 && tile_w % PATCH_W == 0;
+}
+
+// warps (and CTAs) a tile
+__host__ __device__ __forceinline__ int warps_of(int tile_h, int tile_w) {
+  return (tile_h * tile_w + 31) / 32;
 }
 
 struct Pixel {
@@ -80,73 +107,139 @@ struct Pixel {
   bool inside;
 };
 
-// The CTA's render, tile range and this thread's pixel.
+// The CTA's (one warp's) render, tile range and this lane's pixel.
 __device__ __forceinline__ Pixel pixel_of(const int* __restrict__ seg,
                                           int n_tiles, int tiles_x,
                                           int tile_h, int tile_w, int maxn) {
   Pixel p;
-  const int b = blockIdx.x;
+  const int per_tile = warps_of(tile_h, tile_w);
+  const int b = blockIdx.x / per_tile, warp = blockIdx.x - b * per_tile;
+  const int lane = threadIdx.x;
   p.r = b / n_tiles;
   const int tile = b - p.r * n_tiles;
-  const int t = threadIdx.x;
-  p.inside = t < tile_h * tile_w;
-  p.x = (tile % tiles_x) * tile_w + (p.inside ? t % tile_w : 0);
-  p.y = (tile / tiles_x) * tile_h + (p.inside ? t / tile_w : 0);
+  int lx, ly;
+  if (patches(tile_h, tile_w)) {
+    const int across = tile_w / PATCH_W;
+    ly = (warp / across) * PATCH_H + lane / PATCH_W;
+    lx = (warp % across) * PATCH_W + lane % PATCH_W;
+    p.inside = true;
+  } else {
+    const int t = warp * 32 + lane;
+    ly = t / tile_w;
+    lx = t % tile_w;
+    p.inside = t < tile_h * tile_w;
+  }
+  p.x = (tile % tiles_x) * tile_w + (p.inside ? lx : 0);
+  p.y = (tile / tiles_x) * tile_h + (p.inside ? ly : 0);
   p.start = seg[b];
   p.n = min(seg[b + 1] - p.start, maxn);
   return p;
 }
 
-__device__ __forceinline__ void stage(float (*tab)[BATCH],
-                                      const float* __restrict__ dup,
-                                      long long M, int j0, int nb) {
-  for (int k = threadIdx.x; k < 9 * nb; k += THREADS) {
-    const int row = k / nb, col = k - row * nb;
-    tab[row][col] = dup[(size_t)row * M + j0 + col];
-  }
+// The warp's pixel rectangle x0, x1, y0, y1.
+struct Rect {
+  int x0, x1, y0, y1;
+};
+
+__device__ __forceinline__ Rect warp_rect(const Pixel& p) {
+  Rect r;
+  r.x0 = __reduce_min_sync(FULL, p.inside ? p.x : INT_MAX);
+  r.x1 = __reduce_max_sync(FULL, p.inside ? p.x : INT_MIN);
+  r.y0 = __reduce_min_sync(FULL, p.inside ? p.y : INT_MAX);
+  r.y1 = __reduce_max_sync(FULL, p.inside ? p.y : INT_MIN);
+  return r;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// Loads columns j0 + lane (j0 + lane < j1) of the table, culls each against
+// the warp's rectangle and stores the kept ones, in depth order, as records
+// recs[0, n) (rec.s.y: the column); returns n. Brackets its stores with
+// __syncwarp, so the previous group's records are consumed and the new
+// ones visible.
+__device__ __forceinline__ int warp_group(Rec* recs,
+                                          const float* __restrict__ dup,
+                                          long long M, int j0, int j1,
+                                          const Rect& r) {
+  const int lane = threadIdx.x, j = j0 + lane;
+  float v[9];
+  bool keep = false;
+  if (j < j1) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = dup[(size_t)k * M + j];
+    keep = rect_keeps(v[0], v[1], v[2], v[3], v[4], v[5], r.x0, r.x1, r.y0,
+                      r.y1);
+  }
+  const unsigned ballot = __ballot_sync(FULL, keep);
+  __syncwarp();
+  if (keep) {
+    Rec& rec = recs[__popc(ballot & ((1u << lane) - 1u))];
+    rec.p = make_float4(v[0], v[1], v[2], v[3]);
+    rec.q = make_float4(v[4], v[5], v[6], v[7]);
+    rec.s = make_float4(v[8], __int_as_float(j), 0.f, 0.f);
+  }
+  __syncwarp();
+  return __popc(ballot);
+}
+
+// A pair's alpha and log(1 - alpha) and whether the walk skips it (power >
+// 0 or alpha < 1/255).
+struct Pair {
+  float a, l;
+  bool skip;
+};
+
+__device__ __forceinline__ Pair pair_of(const Rec& rec, float px, float py) {
+  const float dx = __fsub_rn(rec.p.x, px);
+  const float dy = __fsub_rn(rec.p.y, py);
+  const float power = ewa_power(rec.p.z, rec.p.w, rec.q.x, dx, dy);
+  Pair q;
+  q.a = fminf(ALPHA_MAX, __fmul_rn(rec.q.y, expf(power)));
+  q.skip = power > 0.f || q.a < ALPHA_MIN;
+  q.l = log1pf(-q.a);
+  return q;
+}
+
+// Blends a pair into the pixel's colour and log T, in the plain version's
+// order; false where it stops the pixel (log T would fall below log 1e-4).
+__device__ __forceinline__ bool blend(const Pair& q, const Rec& rec,
+                                      float& log_t, float& cr, float& cg,
+                                      float& cb) {
+  if (q.skip) return true;
+  const float incl = __fadd_rn(log_t, q.l);
+  if (incl < LOG_T_EPS) return false;
+  const float w = __fmul_rn(q.a, expf(log_t));
+  cr = __fadd_rn(cr, __fmul_rn(w, rec.q.z));
+  cg = __fadd_rn(cg, __fmul_rn(w, rec.q.w));
+  cb = __fadd_rn(cb, __fmul_rn(w, rec.s.x));
+  log_t = incl;
+  return true;
+}
+
+__global__ void __launch_bounds__(32)
 binned_fwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
                   long long M, const float* __restrict__ bg,
                   float* __restrict__ out, float* __restrict__ logt, int H,
                   int W, int tile_h, int tile_w, int maxn) {
-  __shared__ float tab[9][BATCH];
+  __shared__ Rec recs[32];
   const int tiles_x = W / tile_w;
   const Pixel p = pixel_of(seg, (H / tile_h) * tiles_x, tiles_x, tile_h,
                            tile_w, maxn);
   const float px = (float)p.x, py = (float)p.y;
+  const Rect rect = warp_rect(p);
 
   float cr = 0.f, cg = 0.f, cb = 0.f;
   float log_t = 0.f;  // log T after the last contributing duplicate
   for (int c0 = 0; c0 < p.n; c0 += CHUNK) {
     const int c1 = min(c0 + CHUNK, p.n);
     bool stopped = !p.inside;  // chunk re-arm
-    for (int j0 = c0; j0 < c1; j0 += BATCH) {
-      // a barrier (the last batch is consumed) that also leaves the chunk
-      // once every pixel of the tile has stopped in it
-      if (__syncthreads_count(!stopped) == 0) break;
-      const int nb = min(BATCH, c1 - j0);
-      stage(tab, dup, M, p.start + j0, nb);
-      __syncthreads();
-      if (stopped) continue;
-      for (int i = 0; i < nb; ++i) {
-        const float dx = __fsub_rn(tab[0][i], px);
-        const float dy = __fsub_rn(tab[1][i], py);
-        const float power = ewa_power(tab[2][i], tab[3][i], tab[4][i], dx, dy);
-        if (power > 0.f) continue;
-        const float a = fminf(ALPHA_MAX, __fmul_rn(tab[5][i], expf(power)));
-        if (a < ALPHA_MIN) continue;
-        const float incl = __fadd_rn(log_t, log1pf(-a));
-        if (incl < LOG_T_EPS) {
-          stopped = true;
-          break;
-        }
-        const float w = __fmul_rn(a, expf(log_t));
-        cr = __fadd_rn(cr, __fmul_rn(w, tab[6][i]));
-        cg = __fadd_rn(cg, __fmul_rn(w, tab[7][i]));
-        cb = __fadd_rn(cb, __fmul_rn(w, tab[8][i]));
-        log_t = incl;
+    for (int j0 = c0; j0 < c1; j0 += 32) {
+      // leave the chunk once every pixel of the warp has stopped in it
+      if (!__any_sync(FULL, !stopped)) break;
+      const int n = warp_group(recs, dup, M, p.start + j0, p.start + c1,
+                               rect);
+      for (int k = 0; k < n; ++k) {
+        if (stopped) continue;
+        const Rec& rec = recs[k];
+        stopped = !blend(pair_of(rec, px, py), rec, log_t, cr, cg, cb);
       }
     }
   }
@@ -161,20 +254,20 @@ binned_fwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
   }
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32)
 binned_bwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
                   long long M, const float* __restrict__ bg,
                   const float* __restrict__ logt,
                   const float* __restrict__ tot,
                   const float* __restrict__ gout, float* __restrict__ dgrad,
                   int H, int W, int tile_h, int tile_w, int maxn) {
-  __shared__ float tab[9][BATCH];
-  __shared__ float acc[9][BATCH];
+  __shared__ Rec recs[32];
   const int tiles_x = W / tile_w;
   const Pixel p = pixel_of(seg, (H / tile_h) * tiles_x, tiles_x, tile_h,
                            tile_w, maxn);
   const float px = (float)p.x, py = (float)p.y;
-  const int lane = threadIdx.x & 31;
+  const int lane = threadIdx.x;
+  const Rect rect = warp_rect(p);
 
   float g0 = 0.f, g1 = 0.f, g2 = 0.f, s_tot = 0.f, tb = 0.f;
   if (p.inside) {
@@ -193,37 +286,36 @@ binned_bwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
   for (int c0 = 0; c0 < p.n; c0 += CHUNK) {
     const int c1 = min(c0 + CHUNK, p.n);
     bool stopped = !p.inside;  // chunk re-arm
-    for (int j0 = c0; j0 < c1; j0 += BATCH) {
-      if (__syncthreads_count(!stopped) == 0) break;
-      const int nb = min(BATCH, c1 - j0);
-      stage(tab, dup, M, p.start + j0, nb);
-      for (int k = threadIdx.x; k < 9 * BATCH; k += THREADS)
-        acc[k / BATCH][k % BATCH] = 0.f;
-      __syncthreads();
-      for (int i = 0; i < nb; ++i) {
-        if (!__any_sync(FULL, !stopped)) break;  // warp-uniform
+    for (int j0 = c0; j0 < c1; j0 += 32) {
+      if (!__any_sync(FULL, !stopped)) break;
+      const int n = warp_group(recs, dup, M, p.start + j0, p.start + c1,
+                               rect);
+      for (int k = 0; k < n; ++k) {
         float v[9];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) v[k] = 0.f;
+        for (int r = 0; r < 9; ++r) v[r] = 0.f;
         bool touched = false;
+        const Rec& rec = recs[k];
         if (!stopped) {
-          const float A = tab[2][i], B = tab[3][i], C = tab[4][i];
-          const float dx = __fsub_rn(tab[0][i], px);
-          const float dy = __fsub_rn(tab[1][i], py);
+          const float4 a4 = rec.p, b4 = rec.q;
+          const float A = a4.z, B = a4.w, C = b4.x;
+          const float dx = __fsub_rn(a4.x, px);
+          const float dy = __fsub_rn(a4.y, py);
           const float power = ewa_power(A, B, C, dx, dy);
           const float e = expf(power);
-          const float a = fminf(ALPHA_MAX, __fmul_rn(tab[5][i], e));
+          const float a = fminf(ALPHA_MAX, __fmul_rn(b4.y, e));
           if (!(power > 0.f || a < ALPHA_MIN)) {
             const float incl = __fadd_rn(log_t, log1pf(-a));
             if (incl < LOG_T_EPS) {
               stopped = true;
             } else {
-              const float t_before = expf(log_t);
-              const float w = __fmul_rn(a, t_before);
-              const float cgv = g0 * tab[6][i] + g1 * tab[7][i] + g2 * tab[8][i];
+              const float t_before = __expf(log_t);
+              const float w = a * t_before;
+              const float cgv = g0 * b4.z + g1 * b4.w + g2 * rec.s.x;
               u_incl += w * cgv;
-              const float dalpha = cgv * t_before -
-                                   ((s_tot - u_incl) + tb) / fmaxf(1.f - a, 1e-6f);
+              const float dalpha =
+                  cgv * t_before -
+                  __fdividef((s_tot - u_incl) + tb, fmaxf(1.f - a, 1e-6f));
               v[6] = g0 * w;
               v[7] = g1 * w;
               v[8] = g2 * w;
@@ -241,37 +333,25 @@ binned_bwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
             }
           }
         }
-        if (__any_sync(FULL, touched)) {  // warp-uniform
-#pragma unroll
-          for (int k = 0; k < 9; ++k) {
-            float s = v[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              s += __shfl_down_sync(FULL, s, off);
-            if (lane == 0 && s != 0.f) atomicAdd(&acc[k][i], s);
-          }
-        }
-      }
-      __syncthreads();
-      // one row per duplicate, owned by this CTA alone
-      for (int k = threadIdx.x; k < 9 * nb; k += THREADS) {
-        const int row = k / nb, col = k - row * nb;
-        dgrad[(size_t)row * M + p.start + j0 + col] = acc[row][col];
+        if (__any_sync(FULL, touched))  // warp-uniform
+          warp_sum_into(v, dgrad + __float_as_int(rec.s.y), (int)M, lane);
       }
     }
   }
 }
 
-// (render, tile) blocks ride on gridDim.x; a tile holds at most 256 pixels
+// (render, tile, warp) blocks ride on gridDim.x; a tile holds at most 256
+// pixels
 inline bool shape_ok(long long M, int R, int H, int W, int tile_h,
                      int tile_w, int maxn) {
   return M >= 0 && R > 0 && H > 0 && W > 0 && tile_h > 0 && tile_w > 0 &&
-         H % tile_h == 0 && W % tile_w == 0 && tile_h * tile_w <= THREADS &&
-         maxn > 0 && maxn % CHUNK == 0;
+         H % tile_h == 0 && W % tile_w == 0 &&
+         tile_h * tile_w <= TILE_PIXELS && maxn > 0 && maxn % CHUNK == 0;
 }
 
 inline unsigned blocks_of(int R, int H, int W, int tile_h, int tile_w) {
-  return (unsigned)R * (unsigned)((H / tile_h) * (W / tile_w));
+  return (unsigned)R * (unsigned)((H / tile_h) * (W / tile_w)) *
+         (unsigned)warps_of(tile_h, tile_w);
 }
 
 }  // namespace
@@ -284,22 +364,22 @@ int binned_splat_fwd(const int* seg, const float* dup, const float* bg,
                      int tile_h, int tile_w, int maxn, void* stream) {
   if (!shape_ok(M, R, H, W, tile_h, tile_w, maxn))
     return (int)cudaErrorInvalidValue;
-  binned_fwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), THREADS, 0,
+  binned_fwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), 32, 0,
                       (cudaStream_t)stream>>>(seg, dup, (long long)M, bg, out,
                                               logt, H, W, tile_h, tile_w,
                                               maxn);
   return (int)cudaGetLastError();
 }
 
-// dgrad [9, M] must be zeroed by the caller (rows of duplicates that are
-// never composited stay zero).
+// dgrad [9, M] must be zeroed by the caller (the kernel adds the rows of
+// the duplicates it composites; the others stay zero).
 int binned_splat_bwd(const int* seg, const float* dup, const float* bg,
                      const float* logt, const float* tot, const float* gout,
                      float* dgrad, int M, int R, int H, int W, int tile_h,
                      int tile_w, int maxn, void* stream) {
   if (!shape_ok(M, R, H, W, tile_h, tile_w, maxn))
     return (int)cudaErrorInvalidValue;
-  binned_bwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), THREADS, 0,
+  binned_bwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), 32, 0,
                       (cudaStream_t)stream>>>(seg, dup, (long long)M, bg, logt,
                                               tot, gout, dgrad, H, W, tile_h,
                                               tile_w, maxn);

@@ -24,7 +24,7 @@
 //
 // Launch: one CTA of 256 threads per (16x16 pixel tile, render), one thread
 // per pixel. For each chunk of the table the CTA first culls the chunk's
-// columns against its tile (tile_keeps), then walks only the survivors.
+// columns against its tile (rect_keeps), then walks only the survivors.
 //
 // What bounds it on the H100: the TPU kernel makes every pixel evaluate
 // every gaussian of its render (power, exp and two compares even where the
@@ -54,23 +54,10 @@
 // outputs written once); what is left is the per-CTA cull, the walk over
 // the survivors and, in the backward, the warp reductions.
 //
-// The cull (tile_keeps, and its plain twin tile_survivors_ref in
-// splat_dense.py): the pair is live at a pixel only where
-// o exp(power) >= 1/255, i.e. where d' M d <= 2 ln(255 o) for the conic
-// M = [[A, B], [B, C]] and d = mean - pixel. The float32 evaluation of the
-// power errs by at most ~6 u ((|A| + |B|) dx^2 + (|C| + |B|) dy^2) (u =
-// 2^-24: the rounding of dx, dy and of the seven operations) and expf and
-// the product with o by a few ulps; the test therefore takes the deflated
-// form M - 1e-5 diag(|A| + |B|, |C| + |B|) against 2 ln(255 o) + 1e-3 (the
-// absolute slack also covers underflow and the float logf of 255 o), in
-// double (its reciprocals by __drcp_rn), and finds the exact
-// minimum of the quadratic over the tile's pixel rectangle (zero if the
-// centre lies in it, else the least of the four edge minima). Columns it
-// cannot decide are kept, as the unculled walk treats them: a non-finite
-// mean, conic or opacity, a deflated form that is not positive definite,
-// or magnitudes (|mean| >= 1e9, |conic| >= 1e18) at which the float32
-// power could overflow. Opacity <= 0 (padding) is dropped: alpha <= 0 at
-// every pixel.
+// The cull (rect_keeps in splat_common.cuh, and its plain twin
+// tile_survivors_ref in splat_dense.py): a column is dropped only where the
+// walk's own float32 arithmetic skips it (alpha < 1/255) at every pixel of
+// the tile's rectangle; see the header.
 //
 // Backward reduction: the TPU accumulates per-gaussian rows across pixel
 // blocks in a revisited output block on its sequential grid, which a GPU
@@ -96,7 +83,11 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include "splat_common.cuh"
+
 namespace {
+
+using namespace splat;
 
 constexpr int ROWS = 16;
 constexpr int TILE = 16;
@@ -107,63 +98,6 @@ constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
 constexpr float ALPHA_MAX = 0.99f;
 constexpr float POWER_SKIP = 1e-4f;
 constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
-constexpr unsigned FULL = 0xffffffffu;
-// the cull's margins (see the header; splat_dense.py holds the same)
-constexpr double CULL_DEFLATE = 1e-5;
-constexpr double CULL_TAU_SLACK = 1e-3;
-constexpr double CULL_MAX_MEAN = 1e9;
-constexpr double CULL_MAX_CONIC = 1e18;
-
-// one surviving column: (mx, my, A, B), (C, o, r, g), (b, column bits, -, -)
-struct __align__(16) Rec {
-  float4 p, q, s;
-};
-
-// EWA power -0.5 (A dx^2 + C dy^2) - B dx dy, rounded op by op without FMA
-// contraction in the plain version's order: with exp and log alike, the
-// kernel and the plain version then take the same skip and stop decisions,
-// so a pixel near the T threshold cannot flip between them.
-__device__ __forceinline__ float ewa_power(float A, float B, float C, float dx,
-                                          float dy) {
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(A, dx), dx),
-                            __fmul_rn(__fmul_rn(C, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(B, dx), dy));
-}
-
-// min over Y in [lo, hi] of a X^2 + 2 b X Y + c Y^2 (c > 0)
-__device__ __forceinline__ double edge_min(double a, double b, double c,
-                                           double X, double lo, double hi) {
-  const double y = fmin(fmax(-b * X * __drcp_rn(c), lo), hi);
-  return a * X * X + 2.0 * b * X * y + c * y * y;
-}
-
-// False only where the column is skipped at every pixel of the rectangle
-// [x0, x1] x [y0, y1] (pixel coordinates); see the header.
-__device__ bool tile_keeps(float fmx, float fmy, float fA, float fB, float fC,
-                           float fo, double x0, double x1, double y0,
-                           double y1) {
-  if (!(isfinite(fmx) && isfinite(fmy) && isfinite(fA) && isfinite(fB) &&
-        isfinite(fC) && isfinite(fo)))
-    return true;
-  if (fo <= 0.f) return false;
-  const double mx = fmx, my = fmy, A = fA, B = fB, C = fC;
-  if (fabs(mx) >= CULL_MAX_MEAN || fabs(my) >= CULL_MAX_MEAN ||
-      fabs(A) >= CULL_MAX_CONIC || fabs(B) >= CULL_MAX_CONIC ||
-      fabs(C) >= CULL_MAX_CONIC)
-    return true;
-  const double a = A - CULL_DEFLATE * (fabs(A) + fabs(B));
-  const double c = C - CULL_DEFLATE * (fabs(C) + fabs(B));
-  if (!(a > 0.0 && a * c - B * B > 0.0)) return true;
-  const double tau = 2.0 * (double)logf(255.f * fo) + CULL_TAU_SLACK;
-  if (tau < 0.0) return false;
-  const double lx = mx - x1, hx = mx - x0, ly = my - y1, hy = my - y0;
-  if (lx <= 0.0 && hx >= 0.0 && ly <= 0.0 && hy >= 0.0) return true;
-  const double m = fmin(fmin(edge_min(a, B, c, lx, ly, hy),
-                             edge_min(a, B, c, hx, ly, hy)),
-                        fmin(edge_min(c, B, a, ly, lx, hx),
-                             edge_min(c, B, a, hy, lx, hx)));
-  return m <= tau;
-}
 
 // Culls columns [c0, c0 + chunk_n) of the render's table g against the
 // CTA's tile and writes the survivors, in depth order, to recs[0, n).
@@ -181,7 +115,7 @@ __device__ int cull_chunk(Rec* recs, int* warp_n, const float* __restrict__ g,
     if (col < chunk_n) {
 #pragma unroll
       for (int k = 0; k < 9; ++k) v[k] = g[(size_t)k * n_pad + c0 + col];
-      keep = tile_keeps(v[0], v[1], v[2], v[3], v[4], v[5], x0, x1, y0, y1);
+      keep = rect_keeps(v[0], v[1], v[2], v[3], v[4], v[5], x0, x1, y0, y1);
     }
     const unsigned ballot = __ballot_sync(FULL, keep);
     if (lane == 0) warp_n[warp] = __popc(ballot);
@@ -203,43 +137,6 @@ __device__ int cull_chunk(Rec* recs, int* warp_n, const float* __restrict__ g,
     __syncthreads();
   }
   return total;
-}
-
-// Sums v[0..8] over the warp's lanes and adds the nine sums to the
-// column's gradient rows dgc[k * n_pad]. Rows 0-7: a reduce-scatter over
-// lane bits 4, 3, 2 leaves row lane >> 2 summed over eight lanes, two more
-// shuffles over the whole warp; row 8: a butterfly. 14 shuffles.
-__device__ __forceinline__ void warp_sum_into(float (&v)[9],
-                                              float* __restrict__ dgc,
-                                              int n_pad, int lane) {
-#pragma unroll
-  for (int j = 0; j < 4; ++j) {
-    const bool up = lane & 16;
-    const float send = up ? v[j] : v[j + 4];
-    const float keep = up ? v[j + 4] : v[j];
-    v[j] = keep + __shfl_xor_sync(FULL, send, 16);
-  }
-#pragma unroll
-  for (int j = 0; j < 2; ++j) {
-    const bool up = lane & 8;
-    const float send = up ? v[j] : v[j + 2];
-    const float keep = up ? v[j + 2] : v[j];
-    v[j] = keep + __shfl_xor_sync(FULL, send, 8);
-  }
-  {
-    const bool up = lane & 4;
-    const float send = up ? v[0] : v[1];
-    const float keep = up ? v[1] : v[0];
-    v[0] = keep + __shfl_xor_sync(FULL, send, 4);
-  }
-  v[0] += __shfl_xor_sync(FULL, v[0], 2);
-  v[0] += __shfl_xor_sync(FULL, v[0], 1);
-  float s8 = v[8];
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) s8 += __shfl_xor_sync(FULL, s8, off);
-  if ((lane & 3) == 0 && v[0] != 0.f)
-    atomicAdd(&dgc[(size_t)(lane >> 2) * n_pad], v[0]);
-  if (lane == 1 && s8 != 0.f) atomicAdd(&dgc[(size_t)8 * n_pad], s8);
 }
 
 struct Tile {

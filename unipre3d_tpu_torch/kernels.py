@@ -3,8 +3,9 @@
 Each source has a plain C interface; it is compiled with ``nvcc`` for
 ``sm_90a`` into a shared library at first use and loaded with ``ctypes``.
 The library lands in ``unipre3d_tpu_torch/_build/`` (listed in
-``.gitignore``) under a name that hashes the source and the flags, so an
-edited source is rebuilt and an unchanged one is reused. Beside it lies
+``.gitignore``) under a name that hashes the source, every header of
+``csrc/`` (``*.cuh``) and the flags, so an edited source or header is
+rebuilt and an unchanged one is reused. Beside it lies
 nvcc's output (``.log``: ptxas' register, shared-memory and spill report).
 Nothing is built at import time: the CPU tests import every module of the
 package.
@@ -45,10 +46,20 @@ def _nvcc() -> str:
     return found
 
 
+def nvcc_command(src, out) -> list:
+    """nvcc's command line that builds the source ``src`` into the shared
+    library ``out`` (headers are found in ``csrc/``, also for a copy of a
+    source kept elsewhere)."""
+    return [_nvcc(), *NVCC_FLAGS, "-I", str(CSRC_DIR), "-o", str(out),
+            str(src)]
+
+
 def library_path(name: str) -> Path:
-    src = (CSRC_DIR / f"{name}.cu").read_bytes()
-    tag = hashlib.sha1(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    return BUILD_DIR / f"{name}_{tag}.so"
+    h = hashlib.sha1((CSRC_DIR / f"{name}.cu").read_bytes())
+    for header in sorted(CSRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"{name}_{h.hexdigest()[:12]}.so"
 
 
 def _build(name: str) -> Path:
@@ -60,8 +71,7 @@ def _build(name: str) -> Path:
     # build under a private name, then rename: a concurrent process never
     # loads a half-written library
     tmp = so.with_suffix(f".{os.getpid()}.tmp")
-    proc = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp),
-                           str(CSRC_DIR / f"{name}.cu")],
+    proc = subprocess.run(nvcc_command(CSRC_DIR / f"{name}.cu", tmp),
                           stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
                           text=True)
     if proc.returncode != 0:

@@ -43,9 +43,15 @@ uninitialised memory into real gaussians (ROADMAP.md section C).
 
 The walk is sequential per pixel (each kernel thread owns a pixel), and
 the plain version walks in the same order with the same operations, so the
-two take the same stop decisions and agree on T bit for bit. T before a
-duplicate is ``exp(log T)`` of the running sum (the JAX kernel's
-``exp(cum - log1m)`` is the same value up to rounding).
+two take the same stop decisions and agree on T and the images bit for
+bit. T before a duplicate is ``exp(log T)`` of the running sum (the JAX
+kernel's ``exp(cum - log1m)`` is the same value up to rounding).
+
+Each kernel warp owns a patch of the tile (``warp_of_pixel``) and walks
+only the duplicates that its cull keeps for the patch's pixel rectangle;
+``patch_survivors_ref`` is the plain twin of that cull (used by the tests
+and ``chip_smoke.py`` only: the cull drops only pairs the walk skips at
+every pixel of the patch, so the plain versions need no cull).
 """
 
 from __future__ import annotations
@@ -57,10 +63,12 @@ import torch
 from unipre3d_tpu_torch import kernels
 from unipre3d_tpu_torch.ops.rasterizer.pack import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS)
+from unipre3d_tpu_torch.ops.rasterizer.splat_dense import cull_keeps
 
 CHUNK = 1024       # duplicates of a tile per chunk (the T re-arm boundary)
 DUP_FACTOR = 6     # default duplicate budget: 6 slots per gaussian
 MAX_TILE_PIXELS = 256
+PATCH_H, PATCH_W = 4, 8   # a kernel warp's patch of the tile
 
 # the kernels' C entry points, with their launch counts
 BINNED_FWD = kernels.CudaKernel("splat_binned", "binned_splat_fwd", 5, 7)
@@ -150,6 +158,49 @@ def _tile_pixels(R, img_h, img_w, tile_h, tile_w, device):
     y = (tiles // tx) * tile_h + t // tile_w
     flat = (y * img_w + x).repeat(R, 1)
     return x.float().repeat(R, 1), y.float().repeat(R, 1), flat
+
+
+def warp_of_pixel(tile_h: int, tile_w: int) -> torch.Tensor:
+    """The kernels' warp of each pixel of a tile, [tile_h * tile_w] int64
+    in row-major pixel order: 4x8 patches, row by row, where 4 divides the
+    tile's height and 8 its width, else 32 consecutive pixels."""
+    t = torch.arange(tile_h * tile_w)
+    y, x = t // tile_w, t % tile_w
+    if tile_h % PATCH_H == 0 and tile_w % PATCH_W == 0:
+        return (y // PATCH_H) * (tile_w // PATCH_W) + x // PATCH_W
+    return t // 32
+
+
+def patch_survivors_ref(seg, table, R: int, img_h: int, img_w: int,
+                        tile_h: int, tile_w: int, maxn: int) -> torch.Tensor:
+    """Plain twin of the kernels' per-warp cull: for each duplicate (column
+    of ``table`` [9, D], i.e. each position of its tile's list) the warps
+    that keep it, [D] int64 with bit w set where warp w's pixel rectangle
+    (``warp_of_pixel``) survives :func:`cull_keeps`; 0 past the tile's cap
+    ``maxn`` (never composited)."""
+    dev = table.device
+    warp = warp_of_pixel(tile_h, tile_w).to(dev)
+    t = torch.arange(tile_h * tile_w, device=dev)
+    n_warps = int(warp.max()) + 1
+
+    def extreme(v, how):
+        return torch.zeros(n_warps, dtype=v.dtype, device=dev).scatter_reduce(
+            0, warp, v, how, include_self=False).double()
+    x, y = t % tile_w, t // tile_w
+    rect = (extreme(x, "amin"), extreme(x, "amax"), extreme(y, "amin"),
+            extreme(y, "amax"))
+    tiles_x = img_w // tile_w
+    n_tiles = (img_h // tile_h) * tiles_x
+    start = seg.long()
+    pos = torch.arange(table.shape[1], device=dev)
+    block = torch.searchsorted(start, pos, right=True) - 1
+    tile = block % n_tiles
+    ox = ((tile % tiles_x) * tile_w).double()[:, None]
+    oy = ((tile // tiles_x) * tile_h).double()[:, None]
+    keep = cull_keeps(table[:6, :, None], ox + rect[0], ox + rect[1],
+                      oy + rect[2], oy + rect[3])          # [D, n_warps]
+    bits = (keep.long() << torch.arange(n_warps, device=dev)).sum(1)
+    return torch.where(pos - start[block] < maxn, bits, 0)
 
 
 def _to_tiles(img, tile_h, tile_w):

@@ -36,7 +36,7 @@ POWER_SKIP = 1e-4
 # ~2**26 elements each
 _REF_ELEMS = 1 << 26
 
-# the kernels' per-tile cull (csrc/splat_dense.cu, tile_keeps): tile side,
+# the kernels' per-tile cull (csrc/splat_common.cuh, rect_keeps): tile side,
 # deflation of the conic, slack of the threshold 2 ln(255 o), magnitudes of
 # mean and conic above which a column is kept undecided
 TILE = 16
@@ -107,38 +107,29 @@ def _walk(d, px, py, chunk_n, keep_columns=False):
     return rgb, pe, columns
 
 
-def tile_survivors_ref(data, img_h: int, img_w: int) -> torch.Tensor:
-    """Plain twin of the kernels' per-tile cull (``tile_keeps`` in
-    csrc/splat_dense.cu), in float64 as there: data [R,16,N_pad] ->
-    [R, n_tiles, N_pad] bool, tiles of 16x16 pixels in row-major order,
-    True where the column survives the tile's cull. A column is dropped
-    only where the minimum over the tile's pixel rectangle of the deflated
+def cull_keeps(rows, x0, x1, y0, y1) -> torch.Tensor:
+    """Plain twin of the kernels' cull of a column against a pixel
+    rectangle (``rect_keeps`` in csrc/splat_common.cuh), in float64 as
+    there. rows [6, ...] float32: mean x, mean y, conic A, B, C, opacity;
+    x0 <= x1, y0 <= y1 (pixel coordinates) broadcast against rows[0].
+    False only where the minimum over the rectangle of the deflated
     quadratic d' M d (M the conic less 1e-5 diag(|A| + |B|, |C| + |B|), d
     mean minus pixel) exceeds 2 ln(255 o) + 1e-3, i.e. where the walk's
-    float32 arithmetic skips it (alpha < 1/255) at every pixel; opacity
-    <= 0 drops; a non-finite row, a deflated form that is not positive
-    definite and magnitudes at which the float32 power could overflow
-    are kept."""
-    d = data[:, :6].double()
-    mx, my, A, B, C, o = (d[:, k, None, :] for k in range(6))  # [R, 1, N]
-    tiles_x, tiles_y = -(-img_w // TILE), -(-img_h // TILE)
-    dev = data.device
-    x0 = (torch.arange(tiles_x, device=dev) * TILE).double().repeat(tiles_y)
-    y0 = (torch.arange(tiles_y, device=dev) * TILE).double() \
-        .repeat_interleave(tiles_x)
-    x1 = torch.clamp_max(x0 + TILE, img_w) - 1
-    y1 = torch.clamp_max(y0 + TILE, img_h) - 1
-    x0, x1, y0, y1 = (t[None, :, None] for t in (x0, x1, y0, y1))
+    float32 arithmetic skips the pair (alpha < 1/255) at every pixel;
+    opacity <= 0 drops; a non-finite row, a deflated form that is not
+    positive definite and magnitudes at which the float32 power could
+    overflow are kept."""
+    d = rows.double()
+    mx, my, A, B, C, o = d
     a = A - CULL_DEFLATE * (A.abs() + B.abs())
     c = C - CULL_DEFLATE * (C.abs() + B.abs())
-    finite = torch.isfinite(d).all(1, keepdim=True)
+    finite = torch.isfinite(d).all(0)
     huge = (torch.maximum(mx.abs(), my.abs()) >= CULL_MAX_MEAN) \
         | (torch.maximum(torch.maximum(A.abs(), B.abs()), C.abs())
            >= CULL_MAX_CONIC)
     pos_def = (a > 0) & (a * c - B * B > 0)
     # as the kernels: the log of 255 o in float32, the rest in float64
-    tau = 2.0 * torch.log(255.0 * data[:, 5, None, :]).double() \
-        + CULL_TAU_SLACK
+    tau = 2.0 * torch.log(255.0 * rows[5]).double() + CULL_TAU_SLACK
     lx, hx, ly, hy = mx - x1, mx - x0, my - y1, my - y0
 
     def edge_min(a, b, c, X, lo, hi):
@@ -153,6 +144,23 @@ def tile_survivors_ref(data, img_h: int, img_w: int) -> torch.Tensor:
     centre_in = (lx <= 0) & (hx >= 0) & (ly <= 0) & (hy >= 0)
     hit = (tau >= 0) & (centre_in | (m <= tau))
     return ~finite | ((o > 0) & (huge | ~pos_def | hit))
+
+
+def tile_survivors_ref(data, img_h: int, img_w: int) -> torch.Tensor:
+    """Plain twin of the dense kernels' per-tile cull: data [R,16,N_pad]
+    -> [R, n_tiles, N_pad] bool, tiles of 16x16 pixels in row-major order
+    (clipped to the image), True where the column survives the tile's cull
+    (:func:`cull_keeps`)."""
+    tiles_x, tiles_y = -(-img_w // TILE), -(-img_h // TILE)
+    dev = data.device
+    x0 = (torch.arange(tiles_x, device=dev) * TILE).double().repeat(tiles_y)
+    y0 = (torch.arange(tiles_y, device=dev) * TILE).double() \
+        .repeat_interleave(tiles_x)
+    x1 = torch.clamp_max(x0 + TILE, img_w) - 1
+    y1 = torch.clamp_max(y0 + TILE, img_h) - 1
+    x0, x1, y0, y1 = (t[None, :, None] for t in (x0, x1, y0, y1))
+    rows = data[:, :6].transpose(0, 1)[:, :, None, :]     # [6, R, 1, N]
+    return cull_keeps(rows, x0, x1, y0, y1)
 
 
 def _render_blocks(R, n_elems):
