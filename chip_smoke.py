@@ -19,8 +19,12 @@ Phases, all of them, in order; any failure exits non-zero:
    per-warp cull, whose plain twin must keep every pair the card's plain
    walk does not skip; the warp-column iterations of the first port's
    rows and of the culled patches at the scene shape) and the streaming
-   splat (eval and test-video path: the scene load, the object orbit shape
-   and a purpose case of its chunk rules).
+   splat (eval and test-video path: the scene load of 16 test views and the
+   object orbit's 80 frames, each in one launch, a purpose case of its
+   chunk rules and a case built to meet the edges of
+   its per-warp cull; T and images bit for bit; the cull's plain twin must
+   keep every pair the card's plain walk does not skip; the warp-column
+   iterations of the first port's rows and of the culled patches).
 4. train: on synthetic data through ``unipre3d_tpu_torch.train_network``,
    each under its own output directory: three full-width
    ``transformer_pretraining`` steps with their val loop, checkpoints and
@@ -33,8 +37,10 @@ Phases, all of them, in order; any failure exits non-zero:
    skip.
 5. test renders: the object orbit (80 frames) and the test views of a
    test example from the trained run's checkpoint, and the 16 test views of
-   a full-width scene at 84,096 slots, through the streaming splat (the
-   scene's also through the tiled renderer), each timed.
+   a full-width scene at 84,096 slots, through the streaming splat, each
+   set of views in one launch, that launch held bit for bit against the
+   plain version on its own inputs, and its frames equal bit for bit to one
+   launch a view (the scene's also through the tiled renderer), each timed.
 6. parity: one train step of a small object and a small scene configuration
    on the card (kernels) against the same step on the CPU (plain versions),
    same weights and batch; for the scene also each SparseUNet/PointFusion
@@ -77,13 +83,12 @@ BWD_OPS_PER_PAIR = (60, 4)     # forward 16 + gradient terms 35 + sums 9; +rcp
 # without FMA: 2 more), backward with the warp sums of nine rows
 BINNED_FWD_OPS_PER_PAIR = (24, 3)
 BINNED_BWD_OPS_PER_PAIR = (62, 4)
-# csrc/splat_stream.cu does the binned kernels' per-pair arithmetic; a pair
-# it tests without compositing (a flagged chunk is tested for every pixel
-# of the tile up to the pixel's stop) costs dx, dy and the power 11, the
-# power test 1, alpha 2 and the alpha test 1; the exp
+# csrc/splat_stream.cu does the binned kernels' per-pair arithmetic. Its
+# bound counts the contributing pairs only: the pairs a flagged chunk makes
+# the plain walk test without compositing are what its per-warp cull
+# drops, so the function does not need them
 STREAM_FWD_OPS_PER_PAIR = BINNED_FWD_OPS_PER_PAIR
 STREAM_BWD_OPS_PER_PAIR = BINNED_BWD_OPS_PER_PAIR
-STREAM_EVAL_OPS_PER_PAIR = (15, 1)
 
 TOL_IMAGE = 1e-4   # max abs error of images and T (pixel values in [0, 1])
 TOL_GRAD = 1e-4    # max abs error over max |reference|, per gradient row
@@ -189,9 +194,10 @@ def cull_edge_gaussians(R, N, H, W, g, cell=(16, 16)):
     rotated ellipses (large |B|), opacity 1 (the 0.99 cap), sub-pixel
     sigmas, centres outside the image, and isotropic gaussians whose 1/255
     level set grazes a corner pixel of a ``cell`` (x, y) from outside (the
-    dense kernels' 16x16 tile, the binned kernels' 8x4 warp patch; radius
-    jittered by +-1e-4). Returns (mean2d, conic, color, opacity, depth,
-    radius (3 sigma), valid) like ``random_gaussians``."""
+    dense kernels' 16x16 tile, the binned kernels' 8x4 warp patch, the
+    streaming kernels' 8x8; radius jittered by +-1e-4). Returns (mean2d,
+    conic, color, opacity, depth, radius (3 sigma), valid) like
+    ``random_gaussians``."""
     import torch
     u = lambda lo, hi, *s: lo + (hi - lo) * torch.rand(*s, generator=g)
     lu = lambda lo, hi, *s: torch.exp(u(math.log(lo), math.log(hi), *s))
@@ -274,15 +280,12 @@ def contributing_pairs(data, H, W):
     return total
 
 
-def bound(nbytes, pairs, per_pair, evaluated=0, eval_per_pair=(0, 0)):
+def bound(nbytes, pairs, per_pair):
     """Least time (ms) and what sets it: ``nbytes`` at the memory rate, or
     ``pairs`` contributing pairs at ``per_pair`` (float32, special-function)
-    operations each plus the other ``evaluated - pairs`` evaluated pairs at
-    ``eval_per_pair`` each, at the float32 and SFU peaks."""
+    operations each, at the float32 and SFU peaks."""
     t_bytes = nbytes / PEAK_BYTES
-    rest = max(evaluated - pairs, 0)
-    t_ops = max((pairs * per_pair[0] + rest * eval_per_pair[0]) / PEAK_F32,
-                (pairs * per_pair[1] + rest * eval_per_pair[1]) / PEAK_SFU)
+    t_ops = max(pairs * per_pair[0] / PEAK_F32, pairs * per_pair[1] / PEAK_SFU)
     return max(t_bytes, t_ops) * 1e3, ("bytes" if t_bytes >= t_ops
                                        else "operations")
 
@@ -686,14 +689,16 @@ def purpose_case(device):
 
 def stream_work(c, stats):
     """What this run's data does in the streaming kernels, from the tally
-    ``stats`` of the plain forward's walk (splat_stream._walk):
-    contributing (pixel, gaussian) pairs; pairs evaluated (each flagged
-    chunk up to each pixel's stop in it); pixels that contribute in a chunk
-    after stopping in an earlier one (the re-arm); (tile, gaussian) pairs
-    where a gaussian whose bbox misses the tile contributes to one of its
-    pixels; tiles with an unflagged chunk between two flagged ones; and the
-    table columns of the chunks some tile of their render flags (what the
-    kernels must read)."""
+    ``stats`` of the plain forward's walk (splat_stream._walk, with the
+    cull's twin): contributing (pixel, gaussian) pairs; pairs evaluated
+    (each flagged chunk up to each pixel's stop in it); pixels that
+    contribute in a chunk after stopping in an earlier one (the re-arm);
+    (tile, gaussian) pairs where a gaussian whose bbox misses the tile
+    contributes to one of its pixels; tiles with an unflagged chunk
+    between two flagged ones; the table columns of the chunks some tile of
+    their render flags (what the kernels must read); the warp-column
+    iterations unculled and culled, the culled groups, the live pairs and
+    those the twin misses (``_walk``)."""
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
     flags = c["flags"]
@@ -706,24 +711,47 @@ def stream_work(c, stats):
                        [-1]).bool()                     # a flag at or after
     gap = (~f[..., 1:-1] & seen[..., :-2] & ahead[..., 2:]).any(-1)
     cols = int(f.any(1).sum()) * ss.CHUNK
-    return dict(pairs=int(stats["pairs"]), evaluated=int(stats["evaluated"]),
-                rearm=int(stats["rearm"]), outside=int(outside),
-                gap_tiles=int(gap.sum()), cols=cols)
+    return dict(outside=int(outside), gap_tiles=int(gap.sum()), cols=cols,
+                **{k: int(stats[k]) for k in (
+                    "pairs", "evaluated", "rearm", "iters_rows",
+                    "iters_patches", "groups", "live", "missed")})
+
+
+def stream_edge_case(device):
+    """The streaming kernels' cull-edge case: ``cull_edge_gaussians`` aimed
+    at the 8x8 warp patches of the scene's 8x32 tiles, 10 renders (two of
+    each kind) of 1,200 gaussians (three chunks) at 120x160."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    from unipre3d_tpu_torch.ops.rasterizer.preprocess import \
+        ProjectedGaussians
+    g = torch.Generator().manual_seed(202)
+    pg = ProjectedGaussians(*(t.to(device) for t in cull_edge_gaussians(
+        10, 1200, 120, 160, g, (ss.PATCH, ss.PATCH))))
+    return stream_tables(pg, 120, 160, device,
+                         torch.randn(10, 3, 120, 160, generator=g))
 
 
 def phase_stream_kernels(device):
-    """The streaming kernels against their plain versions at three shapes:
-    (a) the scene load, 8 views x 84,096 valid gaussians at 120x160 (8x32
-    tiles), what a ScanNet scene gives the test views; (b) the object orbit
-    shape, N = 128 at 128x128 (32x32 tiles); (c) the purpose case
-    (``purpose_case``). Image, T (bit for bit), the nine gradient rows and
-    dbg; times and bounds at (a) and (b)."""
+    """The streaming kernels against their plain versions at four shapes:
+    (a) the scene load, the 16 test views of a scene in one launch, 84,096
+    valid gaussians at 120x160 (8x32 tiles), what a ScanNet scene gives
+    them; (b) the object orbit shape, its 80 frames in one launch, N = 128
+    at 128x128 (32x32 tiles); (c) the purpose case
+    (``purpose_case``); (d) the cull-edge case (``stream_edge_case``).
+    Image and T bit for bit, the nine gradient rows and dbg to TOL_GRAD;
+    at (a) and (d) the plain twin of the kernels' per-warp cull must keep
+    every pair the card's plain walk does not skip, and the warp-column
+    iterations of the first port's 1x32 rows and of the culled 8x8 patches
+    are counted; times and bounds at (a) and (b)."""
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
-    cases = [("scene", lambda: stream_case(8, 84096, 120, 160, 200, device)),
-             ("orbit", lambda: stream_case(1, 128, 128, 128, 201, device,
+    cases = [("scene", lambda: stream_case(16, 84096, 120, 160, 200,
+                                           device)),
+             ("orbit", lambda: stream_case(80, 128, 128, 128, 201, device,
                                            invalid=0.1)),
-             ("purpose", lambda: purpose_case(device))]
+             ("purpose", lambda: purpose_case(device)),
+             ("cull edges", lambda: stream_edge_case(device))]
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
     for label, make in cases:
         c = make()
@@ -735,19 +763,23 @@ def phase_stream_kernels(device):
                         * torch.exp(logt)[:, None])).sum(1)
         dgrad = ss.stream_bwd(table, flags, bg, logt, tot, g_out, *args)
         # the plain versions walk every column one at a time (~40 and ~90 s
-        # at the scene load): one timed call each gives both result and time
-        # (the forward also tallies the walk's work, a few reductions a
-        # chunk: stream_work)
-        stats = {}
+        # at 8 views of the scene load): one timed call each gives both
+        # result and time
         (out_r, logt_r), pms_f = cuda_timed(
-            lambda: ss.stream_fwd_ref(table, flags, bg, *args, stats=stats))
+            lambda: ss.stream_fwd_ref(table, flags, bg, *args))
         dgrad_r, pms_b = cuda_timed(lambda: ss.stream_bwd_ref(
             table, flags, bg, logt_r, tot, g_out, *args))
+        # the work the data makes the kernels do, in a second (untimed)
+        # plain forward that tallies its walk against the cull's plain twin
+        stats = {"survivors": ss.patch_survivors_ref(table, flags, *args),
+                 "tile": (c["th"], c["tw"])}
+        tallied = ss.stream_fwd_ref(table, flags, bg, *args, stats=stats)
         dbg = torch.einsum("rhw,rchw->c", torch.exp(logt), g_out)
         dbg_r = torch.einsum("rhw,rchw->c", torch.exp(logt_r), g_out)
         err_out = float((out - out_r).abs().max())
         err_t = float((torch.exp(logt) - torch.exp(logt_r)).abs().max())
         t_mismatch = int((logt != logt_r).sum())
+        img_mismatch = int((out != out_r).sum())
         row_err = [float((dgrad[:, k] - dgrad_r[:, k]).abs().max()
                          / (dgrad_r[:, k].abs().max() + 1e-12))
                    for k in range(9)]
@@ -765,15 +797,28 @@ def phase_stream_kernels(device):
             f"{work['gap_tiles']} tiles with an unflagged chunk between "
             f"flagged ones, {int(flags.sum())} of {flags.numel()} (tile, "
             f"chunk) flags set; fwd max|err| out {err_out:.3e} T "
-            f"{err_t:.3e} (T bit-mismatches {t_mismatch}) tol "
-            f"{TOL_IMAGE:g}; bwd max rel err per row {max(row_err):.3e} "
+            f"{err_t:.3e} (bit-mismatches T {t_mismatch}, images "
+            f"{img_mismatch}; must be 0) tol {TOL_IMAGE:g}; bwd max rel err "
+            f"per row {max(row_err):.3e} "
             f"({', '.join(f'{e:.1e}' for e in row_err)}) dbg {err_bg:.3e} "
             f"tol {TOL_GRAD:g}; bwd max|err| {abs_bwd:.3e}")
+        log(f"[kernels] stream {label}: {work['live']} pairs not skipped by "
+            f"the plain walk, dropped by the twin of the per-warp cull "
+            f"{work['missed']} (must be 0); warp-column iterations "
+            f"{work['iters_rows']} in 1x32 rows unculled (the first port), "
+            f"{work['iters_patches']} in 8x8 patches culled "
+            f"({work['iters_rows'] / max(work['iters_patches'], 1):.2f}x "
+            f"fewer), in {work['groups']} culled 32-column groups")
         if not (err_out <= TOL_IMAGE and err_t <= TOL_IMAGE
-                and t_mismatch == 0 and max(row_err) <= TOL_GRAD
-                and err_bg <= TOL_GRAD):
+                and t_mismatch == 0 and img_mismatch == 0
+                and max(row_err) <= TOL_GRAD and err_bg <= TOL_GRAD
+                and all(torch.equal(a, b) for a, b in zip(tallied,
+                                                          (out_r, logt_r)))):
             raise AssertionError(f"stream kernel disagrees with its plain "
                                  f"version ({label})")
+        if work["missed"]:
+            raise AssertionError(f"stream {label}: the per-warp cull drops "
+                                 f"live pairs")
         if label == "purpose" and not (work["rearm"] > 0
                                        and work["gap_tiles"] > 0
                                        and work["outside"] > 0):
@@ -782,7 +827,7 @@ def phase_stream_kernels(device):
         results["fwd_err"] = max(results["fwd_err"], err_out, err_t)
         results["bwd_err"] = max(results["bwd_err"], abs_bwd)
         if label in ("scene", "orbit"):
-            it_k = 20 if label == "scene" else 50
+            it_k = 20
             ms_f = cuda_ms(lambda: ss.stream_fwd(table, flags, bg, *args),
                            it_k)
             ms_b = cuda_ms(lambda: ss.stream_bwd(table, flags, bg, logt, tot,
@@ -792,34 +837,25 @@ def phase_stream_kernels(device):
             # forward writes out (3 planes) and log T, the backward reads
             # log T, tot and g_out (5 planes) and adds rows 0-8 of dgrad
             # for the same columns
-            # ops: the contributing pairs at the per-pair count, the other
-            # evaluated pairs at STREAM_EVAL_OPS_PER_PAIR (the chunk rule
-            # makes the function test them); the bound of the contributing
-            # pairs alone is printed beside it
+            # ops: the contributing pairs at the per-pair count
             tab = 9 * work["cols"] * 4
             fixed = flags.numel() * 4 + 12
             img = R * c["H"] * c["W"] * 4
-            ev = (work["evaluated"], STREAM_EVAL_OPS_PER_PAIR)
             bf, byf = bound(tab + fixed + 4 * img, work["pairs"],
-                            STREAM_FWD_OPS_PER_PAIR, *ev)
+                            STREAM_FWD_OPS_PER_PAIR)
             bb, byb = bound(2 * tab + fixed + 5 * img, work["pairs"],
-                            STREAM_BWD_OPS_PER_PAIR, *ev)
-            bf_c = bound(tab + fixed + 4 * img, work["pairs"],
-                         STREAM_FWD_OPS_PER_PAIR)
-            bb_c = bound(2 * tab + fixed + 5 * img, work["pairs"],
-                         STREAM_BWD_OPS_PER_PAIR)
+                            STREAM_BWD_OPS_PER_PAIR)
             log(f"[kernels] stream {label} shape: table columns read "
                 f"{work['cols']} of {R * n_pad}; fwd {ms_f:.4f} ms (plain "
-                f"{pms_f:.3f}, bound {bf:.5f} by {byf}; contributing pairs "
-                f"only {bf_c[0]:.5f} by {bf_c[1]}); bwd {ms_b:.4f} ms (plain "
-                f"{pms_b:.3f}, bound {bb:.5f} by {byb}; contributing pairs "
-                f"only {bb_c[0]:.5f} by {bb_c[1]})")
+                f"{pms_f:.3f}, bound {bf:.5f} by {byf}, {ms_f / bf:.1f}x); "
+                f"bwd {ms_b:.4f} ms (plain {pms_b:.3f}, bound {bb:.5f} by "
+                f"{byb}, {ms_b / bb:.1f}x)")
             results[label] = {
                 "fwd": dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
                             bound_by=byf),
                 "bwd": dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
                             bound_by=byb)}
-        del c, out, logt, dgrad, out_r, logt_r, dgrad_r, tot, stats
+        del c, out, logt, dgrad, out_r, logt_r, dgrad_r, tot, stats, tallied
         torch.cuda.empty_cache()
     results.update(results["scene"])
     return results
@@ -970,20 +1006,31 @@ def phase_test_renders(device_line, tmp):
     ckpt_lib.load_checkpoint(os.path.join(obj_dir, "model_latest.ckpt"),
                              model, state)
     batch = next(Loader(get_dataset(cfg, "test"), 1, shuffle=False).epoch(0))
-    ss.STREAM_FWD.launches = 0
     one, mask = video.predict_example(model, state, cfg, batch)
-    views, ms_views = timed(lambda: video.test_view_frames(one, mask, cfg,
-                                                           batch))
-    orbit, ms_orbit = timed(lambda: video.render_orbit(one, cfg, 80, mask))
-    n_obj = ss.STREAM_FWD.launches
+    ss.STREAM_FWD.launches = 0
+    (views, seen_views), ms_views = timed(lambda: kept_launches(
+        lambda: video.test_view_frames(one, mask, cfg, batch)))
+    n_views = ss.STREAM_FWD.launches
+    ss.STREAM_FWD.launches = 0
+    (orbit, seen_orbit), ms_orbit = timed(lambda: kept_launches(
+        lambda: video.render_orbit(one, cfg, 80, mask)))
+    n_orbit = ss.STREAM_FWD.launches
+    held = hold_launches({"test views": seen_views, "orbit": seen_orbit})
+    per_view = one_launch_equals_per_view(
+        one, mask, cfg, {"test views": {k: batch[k][0]
+                                        for k in video.CAMERA_KEYS},
+                         "orbit": video.orbit_camera_tensors(cfg, 80)})
     log(f"[render] object ({cfg.tpu.raster_impl}): test views "
-        f"{views.shape} in {ms_views:.1f} ms, orbit {orbit.shape} in "
-        f"{ms_orbit:.1f} ms ({80e3 / ms_orbit:.1f} frames/s); stream_fwd "
-        f"launches {n_obj}; on {device_line}")
+        f"{views.shape} in {ms_views:.1f} ms (stream_fwd launches "
+        f"{n_views}), orbit {orbit.shape} in {ms_orbit:.1f} ms "
+        f"({80e3 / ms_orbit:.1f} frames/s; launches {n_orbit}); one "
+        f"launch a view instead: {per_view}; on {device_line}")
+    log(f"[render] object launches against the plain version: {held}")
     res = int(cfg.data.training_resolution)
-    if n_obj <= 0 or orbit.shape != (80, res, res, 3) or not orbit.any():
-        raise AssertionError("object test renders did not go through the "
-                             "streaming splat")
+    if n_views != 1 or n_orbit != 1 or orbit.shape != (80, res, res, 3) \
+            or not orbit.any():
+        raise AssertionError("object test renders did not go through one "
+                             "streaming launch each")
     loader = Loader(get_dataset(cfg, "test"), 1, shuffle=False,
                     drop_last=False)
     eval_step = trainer.make_eval_step(cfg, model)
@@ -1004,11 +1051,15 @@ def phase_test_renders(device_line, tmp):
                                            seed=42)[0]])
     one, mask = video.predict_example(model, state, cfg, batch)
     ss.STREAM_FWD.launches = 0
-    stream, ms_stream = timed(lambda: video.test_view_frames(one, mask, cfg,
-                                                             batch))
+    (stream, seen_scene), ms_stream = timed(lambda: kept_launches(
+        lambda: video.test_view_frames(one, mask, cfg, batch)))
     n_scene = ss.STREAM_FWD.launches
+    held = hold_launches({"scene test views": seen_scene})
     stream, ms_stream2 = timed(lambda: video.test_view_frames(one, mask, cfg,
                                                               batch))
+    per_view = one_launch_equals_per_view(
+        one, mask, cfg, {"test views": {k: batch[k][0]
+                                        for k in video.CAMERA_KEYS}})
     cfg.tpu.raster_impl = "xla"
     tiled, ms_tiled = timed(lambda: video.test_view_frames(one, mask, cfg,
                                                            batch))
@@ -1018,13 +1069,101 @@ def phase_test_renders(device_line, tmp):
     log(f"[render] scene test views, {stream.shape[0]} views of "
         f"{one['xyz'].shape[0]} slots ({int(mask.sum())} valid): streaming "
         f"splat {ms_stream:.1f} / {ms_stream2:.1f} ms (stream_fwd launches "
-        f"{n_scene}), tiled renderer (capacity "
-        f"{cfg.tpu.raster_tile_capacity}) {ms_tiled:.1f} / {ms_tiled2:.1f} "
-        f"ms; frames differ by at most {diff} levels; on {device_line}")
-    if n_scene <= 0:
-        raise AssertionError("scene test views did not go through the "
-                             "streaming splat")
-    return {"object_stream_fwd": n_obj, "scene_stream_fwd": n_scene}
+        f"{n_scene}; one launch a view instead: {per_view}), tiled "
+        f"renderer (capacity {cfg.tpu.raster_tile_capacity}) "
+        f"{ms_tiled:.1f} / {ms_tiled2:.1f} ms; frames differ by at most "
+        f"{diff} levels; on {device_line}")
+    log(f"[render] scene launch against the plain version: {held}")
+    if n_scene != 1:
+        raise AssertionError("scene test views did not go through one "
+                             "streaming launch")
+    return {"object_stream_fwd": n_views + n_orbit,
+            "scene_stream_fwd": n_scene}
+
+
+def kept_launches(fn):
+    """``fn()`` with ``splat_stream.stream_fwd`` wrapped to keep each
+    launch's inputs and results -> (fn's result, [(args, (out, log T))]).
+    The wrapped call launches and counts as before."""
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    kernel, seen = ss.stream_fwd, []
+
+    def keep(*args):
+        res = kernel(*args)
+        seen.append((args, res))
+        return res
+    ss.stream_fwd = keep
+    try:
+        return fn(), seen
+    finally:
+        ss.stream_fwd = kernel
+
+
+def hold_launches(seen_by_name):
+    """Each kept streaming launch (``kept_launches``) against the plain
+    version on the launch's own inputs: images and T bit for bit. Returns
+    a summary string."""
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    out = []
+    for name, seen in seen_by_name.items():
+        if not seen:
+            raise AssertionError(f"{name}: no streaming launch kept")
+        for args, (img, logt) in seen:
+            (img_r, logt_r), ms = cuda_timed(lambda: ss.stream_fwd_ref(*args))
+            bad = int((img != img_r).sum()) + int((logt != logt_r).sum())
+            table, flags = args[0], args[1]
+            out.append(f"{name}: R={table.shape[0]} N_pad={table.shape[2]} "
+                       f"{args[3]}x{args[4]} tiles {args[5]}x{args[6]}, "
+                       f"{int(flags.sum())} of {flags.numel()} (tile, chunk) "
+                       f"flags, bit-mismatches {bad} (must be 0), plain "
+                       f"{ms:.1f} ms")
+            if bad:
+                raise AssertionError(f"{name}: the streaming launch disagrees "
+                                     f"with its plain version")
+    return "; ".join(out)
+
+
+def per_view_frames(gaussians, cams, cfg, mask):
+    """The views of ``cams`` (numpy stacks [V, ...]) one ``render_predicted``
+    call each -> [V, 3, H, W] on the CPU."""
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer.render import render_predicted
+    from unipre3d_tpu_torch.training import video
+    from unipre3d_tpu_torch.training.trainer import bg_color_of
+    dev = gaussians["xyz"].device
+    with torch.no_grad():
+        return torch.stack([render_predicted(
+            gaussians, *(torch.as_tensor(cams[k][i], device=dev)
+                         for k in video.CAMERA_KEYS), bg_color_of(cfg), cfg,
+            gaussian_mask=mask)["render"]
+            for i in range(len(cams["camera_centers"]))]).cpu().numpy()
+
+
+def one_launch_equals_per_view(gaussians, mask, cfg, cams_by_name):
+    """Each camera set's views rendered in one streaming launch
+    (``video.render_views``) and one launch a view (``per_view_frames``):
+    the frames must be equal bit for bit.
+    Returns, per set, the per-view time (ms, host clock around
+    synchronized calls) and its launches, as a string."""
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
+    from unipre3d_tpu_torch.training import video
+    out = []
+    for name, cams in cams_by_name.items():
+        one = video.render_views(gaussians, cams, cfg, mask)
+        n0 = ss.STREAM_FWD.launches
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        each = per_view_frames(gaussians, cams, cfg, mask)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t) * 1e3
+        if not np.array_equal(one, each):
+            raise AssertionError(f"{name}: the one-launch frames differ from "
+                                 f"the per-view renders")
+        out.append(f"{name} {ms:.1f} ms in {ss.STREAM_FWD.launches - n0} "
+                   f"launches, frames equal bit for bit")
+    return "; ".join(out)
 
 
 def step_snapshot(cfg, batch, dev):

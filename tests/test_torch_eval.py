@@ -47,6 +47,7 @@ from unipre3d_tpu_torch import eval as teval
 from unipre3d_tpu_torch import train_network
 from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
 from unipre3d_tpu_torch.ops.rasterizer import render as trender
+from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
 from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
 from unipre3d_tpu_torch.training import trainer, video
 from unipre3d_tpu_torch.training.config import load_config
@@ -278,6 +279,47 @@ def test_orbit_and_test_view_frames_match_jax(impl):
     got = video.test_view_frames(tg, torch.from_numpy(mask), tcfg, batch)
     assert got.shape == (3, 32, 64, 3)
     assert np.abs(got.astype(int) - np.stack(frames).astype(int)).max() <= 1
+
+
+@pytest.mark.parametrize("sh_degree", [1, 0])
+def test_test_renders_take_one_streaming_call(monkeypatch, sh_degree):
+    """On the ``pallas`` route the views of a test example, and the frames
+    of an orbit, each go through one call of the streaming splat (R = V
+    renders) and equal the one-call-a-view renders bit for bit (the
+    preprocess is elementwise and each render is sorted and composited on
+    its own); masked gaussians included. At SH degree 0 the colour does not
+    depend on the camera and is still given to every render."""
+    over = ["data.training_resolution=32", "tpu.raster_impl=pallas",
+            f"model.max_sh_degree={sh_degree}"]
+    cfg = load_config("transformer_pretraining", overrides=over)
+    g = {k: torch.from_numpy(v) for k, v in gaussian_dict().items()}
+    mask = torch.from_numpy(np.arange(64) % 6 != 0)
+    batch = _synthetic_batch(jload_config("transformer_pretraining",
+                                          overrides=over), 1, seed=4)
+    calls = []
+
+    def counted(data, *args):
+        calls.append(data.shape[0])
+        return stream_fwd(data, *args)
+    stream_fwd = ss.stream_fwd
+    monkeypatch.setattr(ss, "stream_fwd", counted)
+    for cams in ({k: batch[k][0] for k in video.CAMERA_KEYS},
+                 video.orbit_camera_tensors(cfg, 6)):
+        V = len(cams["camera_centers"])
+        calls.clear()
+        one = video.render_views(g, cams, cfg, mask)
+        assert calls == [V]
+        calls.clear()
+        each = torch.stack([trender.render_predicted(
+            g, *(torch.as_tensor(cams[k][i]) for k in video.CAMERA_KEYS),
+            trainer.bg_color_of(cfg), cfg, gaussian_mask=mask)["render"]
+            for i in range(V)]).numpy()
+        assert calls == [1] * V
+        assert one.shape == (V, 3, 32, 32) and one.max() > 0
+        np.testing.assert_array_equal(one, each)
+    calls.clear()
+    assert video.render_orbit(g, cfg, 6, mask).shape == (6, 32, 32, 3)
+    assert calls == [6]
 
 
 def test_test_videos_written(tmp_path):

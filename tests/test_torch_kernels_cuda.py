@@ -70,8 +70,8 @@ def edge_gaussians(name, H, W, cell=(16, 16), R=4, N=128):
     Kinds: thin rotated ellipses (large |B|), opacity 1 (the 0.99 cap),
     sub-pixel sigmas, centres outside the image, and isotropic gaussians
     whose 1/255 level set grazes a corner pixel of a ``cell`` (the dense
-    kernels' 16x16 tile, the binned kernels' 8x4 (x, y) warp patch) from
-    outside, the radius jittered by +-1e-4."""
+    kernels' 16x16 tile, the binned kernels' 8x4 (x, y) warp patch, the
+    streaming kernels' 8x8) from outside, the radius jittered by +-1e-4."""
     rng = np.random.default_rng(sum(map(ord, name)))
     mean2d = rng.uniform(-8, W + 8, (R, N, 2))
     sig = np.exp(rng.uniform(np.log(0.7), np.log(20.0), (R, N, 2)))
@@ -436,3 +436,95 @@ def test_stream_kernels_rearm_at_512(cuda):
     assert torch.equal(logt, logt_r)
     T = torch.exp(logt)
     assert 1e-4 < float(T.min()) and float(T.max()) < 2e-4
+
+
+def stream_cull_case(name):
+    """Projected gaussians (ProjectedGaussians [R, N, ...], on the CPU)
+    built to meet the edges of the streaming kernels' per-warp cull, with
+    H, W, tile_h, tile_w. At the scene's 120x160 with 8x32 tiles (8x8 warp
+    patches): random gaussians and the edge kinds of ``edge_gaussians``
+    grazing patch corners, over two chunks; ``rearm``: broad gaussians at
+    64x64 with 32x32 tiles (16 patches a tile), pixels stopping inside a
+    chunk and re-armed at the next; ``outside_bbox``: a broad gaussian left
+    of a 64x64 image whose 3-sigma bbox ends in tile column 0, composited in
+    column 1 because small gaussians of its chunk flag that column;
+    ``rows``: 12x12 tiles, whose warps own rows of 64 pixels (the last one
+    partly outside the tile)."""
+    def pg_of(ins):
+        return ProjectedGaussians(*ins[:5], ins[5].to(torch.int32), ins[6])
+    if name == "random":
+        return pg_of(binned_inputs(2, 1000, 120, 160, seed=16,
+                                   device="cpu")), 120, 160, 8, 32
+    if name == "rearm":
+        g = torch.Generator().manual_seed(18)
+        n = 1400
+        var = (6.0 + 14.0 * torch.rand(1, n, generator=g)) ** 2 + 0.3
+        mean2d = torch.rand(1, n, 2, generator=g) * 64.0
+        opa = 0.3 + 0.6 * torch.rand(1, n, generator=g)
+        return stream_screen_case(mean2d, var, opa, g), 64, 64, 32, 32
+    if name == "outside_bbox":
+        g = torch.Generator().manual_seed(19)
+        n = 512
+        mean2d = torch.stack([40.0 + 22.0 * torch.rand(n, generator=g),
+                              2.0 + 60.0 * torch.rand(n, generator=g)], -1)
+        mean2d[0] = torch.tensor([-30.0, 32.0])
+        var = torch.full((n,), 0.25 + 0.3)
+        var[0] = 400.0 + 0.3                  # bbox: x in [-91, 31]
+        opa = 0.2 + 0.4 * torch.rand(n, generator=g)
+        opa[0] = 0.9
+        return stream_screen_case(mean2d[None], var[None], opa[None], g), \
+            64, 64, 32, 32
+    if name == "rows":
+        return pg_of(binned_inputs(1, 700, 36, 48, seed=17,
+                                   device="cpu")), 36, 48, 12, 12
+    ins = edge_gaussians(name, 120, 160, cell=(ss.PATCH, ss.PATCH), R=2,
+                         N=600)
+    return pg_of([*ins, torch.ones(ins[3].shape, dtype=torch.bool)]), \
+        120, 160, 8, 32
+
+
+def stream_screen_case(mean2d, var, opacity, g):
+    """Isotropic screen-space gaussians [1, n] of variance ``var`` (blur
+    included) in depth order, all valid, the 3-sigma radius as the
+    preprocess gives it."""
+    n = var.shape[1]
+    zero = torch.zeros_like(var)
+    conic = torch.stack([1 / var, zero, 1 / var], -1)
+    radius = torch.ceil(3 * torch.sqrt(var + math.sqrt(0.1)))
+    return ProjectedGaussians(
+        mean2d, conic, torch.rand(1, n, 3, generator=g), opacity,
+        1.0 + 1e-3 * torch.arange(n, dtype=torch.float32)[None],
+        radius.to(torch.int32), torch.ones(1, n, dtype=torch.bool))
+
+
+STREAM_CULL_CASES = ["random", "thin_rotated", "opacity_one", "sub_pixel",
+                     "centres_outside", "corner_grazed", "rearm",
+                     "outside_bbox", "rows"]
+
+
+@pytest.mark.cuda
+def test_stream_kernels_match_plain_versions_at_the_cull_edges(cuda):
+    """The edge cases of the streaming kernels' per-warp cull
+    (``stream_cull_case``): T and images bit for bit, since the cull drops
+    only pairs the walk skips at every pixel of the warp's patch; the
+    gradient rows to 1e-4 relative."""
+    for case in STREAM_CULL_CASES:
+        pg, H, W, th, tw = stream_cull_case(case)
+        table, flags, _ = ss.stream_inputs(
+            ProjectedGaussians(*(t.to(cuda) for t in pg)), H, W, th, tw)
+        R = table.shape[0]
+        bg = torch.tensor([0.1, 0.2, 0.3], device=cuda)
+        g_out = torch.randn(R, 3, H, W, device=cuda)
+        out, logt = ss.stream_fwd(table, flags, bg, H, W, th, tw)
+        tot = (g_out * (out - bg.reshape(1, 3, 1, 1)
+                        * torch.exp(logt)[:, None])).sum(1)
+        dgrad = ss.stream_bwd(table, flags, bg, logt, tot, g_out, H, W, th,
+                              tw)
+        out_r, logt_r = ss.stream_fwd_ref(table, flags, bg, H, W, th, tw)
+        dgrad_r = ss.stream_bwd_ref(table, flags, bg, logt_r, tot, g_out, H,
+                                    W, th, tw)
+        torch.cuda.synchronize()
+        assert torch.equal(logt, logt_r), case
+        assert torch.equal(out, out_r), case
+        for k in range(9):
+            assert rel_err(dgrad_r[:, k], dgrad[:, k]) < 1e-4, (case, k)

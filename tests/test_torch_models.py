@@ -37,7 +37,9 @@ from unipre3d_tpu_torch.models import fusion as tfusion
 from unipre3d_tpu_torch.models.gaussian_predictor import build_predictor
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SMALL = ["data.training_resolution=32", "opt.batch_size=2",
          "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "

@@ -13,7 +13,9 @@ import torch
 
 from unipre3d_tpu.ops import point_ops as jp
 from unipre3d_tpu_torch.ops import point_ops as tp
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 
 def cloud(seed, B=2, N=256):

@@ -63,7 +63,10 @@ from unipre3d_tpu_torch.data import SyntheticSceneDataset, batch_to, collate
 from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
-from test_torch_utils import release_memory, trimmed_heap  # noqa: F401
+from test_torch_utils import (  # noqa: F401
+    one_torch_thread, release_memory, trimmed_heap)
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 SCENE = ["data.training_width=32", "data.training_height=32",
          "data.input_images=2", "data.max_points=1024", "opt.batch_size=1",

@@ -35,7 +35,9 @@ from unipre3d_tpu_torch.models.gaussian_predictor import build_predictor
 from unipre3d_tpu_torch.ops import sparse as tsp
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
 TINY = ["data.training_width=32", "data.training_height=32",
         "data.input_images=2", "data.max_points=1024", "opt.batch_size=2",

@@ -40,6 +40,8 @@ from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import \
     preprocess_gaussians as tprep
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 TANF = math.tan(FOV / 2)
 
 
@@ -219,7 +221,7 @@ def test_cpu_tensors_take_the_plain_version_other_devices_raise():
 
 
 @pytest.mark.parametrize("case", CULL_CASES)
-def test_tile_cull_twin_is_conservative(case, one_torch_thread):
+def test_tile_cull_twin_is_conservative(case):
     """Every (render, pixel, column) pair the plain walk does not skip
     (alpha != 0) is a survivor of the pixel's tile in the twin of the
     kernels' cull, so the culled kernels walk every pair that matters."""

@@ -41,6 +41,8 @@ from test_torch_kernels_cuda import (BINNED_CULL_CASES, binned_cull_case,
                                      binned_prep)
 from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 FOV = math.radians(49.13)
 RES = 32
 BG = np.asarray([0.1, 0.2, 0.3], np.float32)
@@ -288,7 +290,7 @@ def test_cut_tiles_port_gradient_is_its_forward_derivative(cut_case):
 
 
 @pytest.mark.parametrize("case", BINNED_CULL_CASES)
-def test_patch_cull_twin_is_conservative(case, one_torch_thread):
+def test_patch_cull_twin_is_conservative(case):
     """Every (render, pixel, duplicate) pair the plain walk does not skip
     (alpha != 0) is kept, in the twin of the kernels' per-warp cull, for
     the warp that owns the pixel, so the culled kernels walk every pair

@@ -37,6 +37,7 @@ from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import ProjectedGaussians
 from unipre3d_tpu_torch.ops.rasterizer.render import (
     rasterize_projected, rasterize_projected_reference)
+from test_torch_kernels_cuda import STREAM_CULL_CASES, stream_cull_case
 from test_torch_splat_binned import FIELDS, projected
 from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
 
@@ -331,3 +332,29 @@ def test_cpu_takes_the_plain_version_other_devices_raise():
     with pytest.raises(ValueError, match="several devices"):
         ss.stream_fwd(table, flags.to("meta"), bg, RES, RES, TILE, TILE)
     assert math.isfinite(float(out.sum()))
+
+
+@pytest.mark.parametrize("case", STREAM_CULL_CASES)
+def test_patch_cull_twin_is_conservative(case):
+    """Every (render, pixel, gaussian) pair the plain walk does not skip
+    (alpha != 0) is kept, in the twin of the kernels' per-warp cull, for
+    the warp that owns the pixel, so the culled kernels walk every pair
+    that matters (the walk's tally counts the misses); the cases meet
+    their purpose (a re-arm, a gaussian composited outside its bbox); and
+    the cull culls."""
+    pg, H, W, th, tw = stream_cull_case(case)
+    table, flags, s = ss.stream_inputs(pg, H, W, th, tw)
+    bits = ss.patch_survivors_ref(table, flags, H, W, th, tw)
+    stats = {"survivors": bits, "tile": (th, tw)}
+    ss.stream_fwd_ref(table, flags, torch.from_numpy(BG), H, W, th, tw,
+                      stats=stats)
+    assert int(stats["missed"]) == 0 and int(stats["live"]) > 0
+    assert int(stats["iters_patches"]) < int(stats["iters_rows"])
+    if case == "rearm":
+        assert int(stats["rearm"]) > 0
+    if case == "outside_bbox":
+        ov = ss.tile_overlap(s.mean2d, s.radius, s.valid, H, W, th, tw)
+        assert int((stats["hit"][..., :ov.shape[-1]] & ~ov).sum()) > 0
+    n_warps = int(ss.warp_of_pixel(th, tw).max()) + 1
+    kept = sum(int(((bits >> w) & 1).sum()) for w in range(n_warps))
+    assert kept < 0.9 * int(flags.sum()) * ss.CHUNK * n_warps

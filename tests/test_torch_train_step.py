@@ -41,6 +41,8 @@ from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_splat_stream import one_torch_thread  # noqa: F401
 from test_torch_utils import trimmed_heap  # noqa: F401
 
+pytestmark = pytest.mark.usefixtures("one_torch_thread")
+
 SMALL = ["data.training_resolution=32", "opt.batch_size=2",
          "data.dataset_root=synthetic", "opt.ema.update_after_step=1",
          "opt.ema.update_every=1",
@@ -211,7 +213,7 @@ def test_synthetic_dataset_and_loader_are_seeded():
     assert batch["point_cloud"].shape == (4, 1024, 3)
 
 
-def test_cli_trains_on_cpu(tmp_path, one_torch_thread):
+def test_cli_trains_on_cpu(tmp_path):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
          "--output-dir", str(tmp_path), "opt.iterations=2",

@@ -1,6 +1,7 @@
 """Versions of one kernel source built and timed side by side on one card.
 
-Shared by tools/time_dense_kernels.py and tools/time_binned_kernels.py:
+Shared by tools/time_dense_kernels.py, tools/time_binned_kernels.py and
+tools/time_stream_kernels.py:
 each source is compiled with the package's nvcc command (all at once) and
 its C entry points bound with ctypes; the versions' launches are timed with
 CUDA events in turns (A B ... then reversed, per round), so that they

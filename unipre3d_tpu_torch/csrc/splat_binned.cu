@@ -84,22 +84,49 @@ namespace {
 using namespace splat;
 
 constexpr int TILE_PIXELS = 256;  // at most 256 pixels a tile
-constexpr int PATCH_H = 4;          // a warp's patch of the tile
-constexpr int PATCH_W = 8;
-constexpr int CHUNK = 1024;         // the T re-arm boundary of a tile's list
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
+constexpr int CHUNK = 1024;       // the T re-arm boundary of a tile's list
 
-// 4x8 patches where 4 divides the tile's height and 8 its width, else 32
-// pixels of the tile in row-major order
-__device__ __forceinline__ bool patches(int tile_h, int tile_w) {
+// A warp owns a compact 4x8 patch of its tile where 4 divides the tile's
+// height and 8 its width, else 32 pixels of the tile in row-major order
+// (splat_binned.py:warp_of_pixel is the plain twin of this map).
+constexpr int PATCH_H = 4;
+constexpr int PATCH_W = 8;
+
+__host__ __device__ __forceinline__ bool patches(int tile_h, int tile_w) {
   return tile_h % PATCH_H == 0 && tile_w % PATCH_W == 0;
 }
 
-// warps (and CTAs) a tile
+// warps (one a CTA) a tile
 __host__ __device__ __forceinline__ int warps_of(int tile_h, int tile_w) {
   return (tile_h * tile_w + 31) / 32;
+}
+
+// Lane ``lane`` of warp ``warp`` of a tile: its pixel (lx, ly) within the
+// tile; false for a lane past the tile's last pixel (lx = ly = 0 then).
+__device__ __forceinline__ bool patch_pixel(int warp, int lane, int tile_h,
+                                            int tile_w, int& lx, int& ly) {
+  if (patches(tile_h, tile_w)) {
+    const int across = tile_w / PATCH_W;
+    ly = (warp / across) * PATCH_H + lane / PATCH_W;
+    lx = (warp % across) * PATCH_W + lane % PATCH_W;
+    return true;
+  }
+  const int t = warp * 32 + lane;
+  const bool inside = t < tile_h * tile_w;
+  ly = inside ? t / tile_w : 0;
+  lx = inside ? t % tile_w : 0;
+  return inside;
+}
+
+// The warp's pixel rectangle (over its lanes inside the tile; every warp
+// has one).
+__device__ __forceinline__ Rect warp_rect(int x, int y, bool inside) {
+  Rect r;
+  r.x0 = __reduce_min_sync(FULL, inside ? x : INT_MAX);
+  r.x1 = __reduce_max_sync(FULL, inside ? x : INT_MIN);
+  r.y0 = __reduce_min_sync(FULL, inside ? y : INT_MAX);
+  r.y1 = __reduce_max_sync(FULL, inside ? y : INT_MIN);
+  return r;
 }
 
 struct Pixel {
@@ -114,104 +141,15 @@ __device__ __forceinline__ Pixel pixel_of(const int* __restrict__ seg,
   Pixel p;
   const int per_tile = warps_of(tile_h, tile_w);
   const int b = blockIdx.x / per_tile, warp = blockIdx.x - b * per_tile;
-  const int lane = threadIdx.x;
   p.r = b / n_tiles;
   const int tile = b - p.r * n_tiles;
   int lx, ly;
-  if (patches(tile_h, tile_w)) {
-    const int across = tile_w / PATCH_W;
-    ly = (warp / across) * PATCH_H + lane / PATCH_W;
-    lx = (warp % across) * PATCH_W + lane % PATCH_W;
-    p.inside = true;
-  } else {
-    const int t = warp * 32 + lane;
-    ly = t / tile_w;
-    lx = t % tile_w;
-    p.inside = t < tile_h * tile_w;
-  }
-  p.x = (tile % tiles_x) * tile_w + (p.inside ? lx : 0);
-  p.y = (tile / tiles_x) * tile_h + (p.inside ? ly : 0);
+  p.inside = patch_pixel(warp, threadIdx.x, tile_h, tile_w, lx, ly);
+  p.x = (tile % tiles_x) * tile_w + lx;
+  p.y = (tile / tiles_x) * tile_h + ly;
   p.start = seg[b];
   p.n = min(seg[b + 1] - p.start, maxn);
   return p;
-}
-
-// The warp's pixel rectangle x0, x1, y0, y1.
-struct Rect {
-  int x0, x1, y0, y1;
-};
-
-__device__ __forceinline__ Rect warp_rect(const Pixel& p) {
-  Rect r;
-  r.x0 = __reduce_min_sync(FULL, p.inside ? p.x : INT_MAX);
-  r.x1 = __reduce_max_sync(FULL, p.inside ? p.x : INT_MIN);
-  r.y0 = __reduce_min_sync(FULL, p.inside ? p.y : INT_MAX);
-  r.y1 = __reduce_max_sync(FULL, p.inside ? p.y : INT_MIN);
-  return r;
-}
-
-// Loads columns j0 + lane (j0 + lane < j1) of the table, culls each against
-// the warp's rectangle and stores the kept ones, in depth order, as records
-// recs[0, n) (rec.s.y: the column); returns n. Brackets its stores with
-// __syncwarp, so the previous group's records are consumed and the new
-// ones visible.
-__device__ __forceinline__ int warp_group(Rec* recs,
-                                          const float* __restrict__ dup,
-                                          long long M, int j0, int j1,
-                                          const Rect& r) {
-  const int lane = threadIdx.x, j = j0 + lane;
-  float v[9];
-  bool keep = false;
-  if (j < j1) {
-#pragma unroll
-    for (int k = 0; k < 9; ++k) v[k] = dup[(size_t)k * M + j];
-    keep = rect_keeps(v[0], v[1], v[2], v[3], v[4], v[5], r.x0, r.x1, r.y0,
-                      r.y1);
-  }
-  const unsigned ballot = __ballot_sync(FULL, keep);
-  __syncwarp();
-  if (keep) {
-    Rec& rec = recs[__popc(ballot & ((1u << lane) - 1u))];
-    rec.p = make_float4(v[0], v[1], v[2], v[3]);
-    rec.q = make_float4(v[4], v[5], v[6], v[7]);
-    rec.s = make_float4(v[8], __int_as_float(j), 0.f, 0.f);
-  }
-  __syncwarp();
-  return __popc(ballot);
-}
-
-// A pair's alpha and log(1 - alpha) and whether the walk skips it (power >
-// 0 or alpha < 1/255).
-struct Pair {
-  float a, l;
-  bool skip;
-};
-
-__device__ __forceinline__ Pair pair_of(const Rec& rec, float px, float py) {
-  const float dx = __fsub_rn(rec.p.x, px);
-  const float dy = __fsub_rn(rec.p.y, py);
-  const float power = ewa_power(rec.p.z, rec.p.w, rec.q.x, dx, dy);
-  Pair q;
-  q.a = fminf(ALPHA_MAX, __fmul_rn(rec.q.y, expf(power)));
-  q.skip = power > 0.f || q.a < ALPHA_MIN;
-  q.l = log1pf(-q.a);
-  return q;
-}
-
-// Blends a pair into the pixel's colour and log T, in the plain version's
-// order; false where it stops the pixel (log T would fall below log 1e-4).
-__device__ __forceinline__ bool blend(const Pair& q, const Rec& rec,
-                                      float& log_t, float& cr, float& cg,
-                                      float& cb) {
-  if (q.skip) return true;
-  const float incl = __fadd_rn(log_t, q.l);
-  if (incl < LOG_T_EPS) return false;
-  const float w = __fmul_rn(q.a, expf(log_t));
-  cr = __fadd_rn(cr, __fmul_rn(w, rec.q.z));
-  cg = __fadd_rn(cg, __fmul_rn(w, rec.q.w));
-  cb = __fadd_rn(cb, __fmul_rn(w, rec.s.x));
-  log_t = incl;
-  return true;
 }
 
 __global__ void __launch_bounds__(32)
@@ -224,7 +162,7 @@ binned_fwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
   const Pixel p = pixel_of(seg, (H / tile_h) * tiles_x, tiles_x, tile_h,
                            tile_w, maxn);
   const float px = (float)p.x, py = (float)p.y;
-  const Rect rect = warp_rect(p);
+  const Rect rect = warp_rect(p.x, p.y, p.inside);
 
   float cr = 0.f, cg = 0.f, cb = 0.f;
   float log_t = 0.f;  // log T after the last contributing duplicate
@@ -243,15 +181,9 @@ binned_fwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
       }
     }
   }
-  if (p.inside) {
-    const float t = expf(log_t);
-    const size_t hw = (size_t)H * W, q = (size_t)p.y * W + p.x;
-    float* o = out + (size_t)p.r * 3 * hw + q;
-    o[0] = __fadd_rn(cr, __fmul_rn(bg[0], t));
-    o[hw] = __fadd_rn(cg, __fmul_rn(bg[1], t));
-    o[2 * hw] = __fadd_rn(cb, __fmul_rn(bg[2], t));
-    logt[(size_t)p.r * hw + q] = log_t;
-  }
+  if (p.inside)
+    write_pixel(p.r, (size_t)H * W, (size_t)p.y * W + p.x, bg, cr, cg, cb,
+                log_t, out, logt);
 }
 
 __global__ void __launch_bounds__(32)
@@ -267,72 +199,23 @@ binned_bwd_kernel(const int* __restrict__ seg, const float* __restrict__ dup,
                            tile_w, maxn);
   const float px = (float)p.x, py = (float)p.y;
   const int lane = threadIdx.x;
-  const Rect rect = warp_rect(p);
+  const Rect rect = warp_rect(p.x, p.y, p.inside);
+  GradPixel s = grad_pixel(p.inside, p.r, (size_t)H * W,
+                           (size_t)p.y * W + p.x, bg, logt, tot, gout);
 
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f, s_tot = 0.f, tb = 0.f;
-  if (p.inside) {
-    const size_t hw = (size_t)H * W, q = (size_t)p.y * W + p.x;
-    const float* go = gout + (size_t)p.r * 3 * hw + q;
-    g0 = go[0];
-    g1 = go[hw];
-    g2 = go[2 * hw];
-    s_tot = tot[(size_t)p.r * hw + q];
-    // background share of dL/dalpha: T_final (bg . g)
-    tb = expf(logt[(size_t)p.r * hw + q]) * (bg[0] * g0 + bg[1] * g1 +
-                                             bg[2] * g2);
-  }
-
-  float log_t = 0.f, u_incl = 0.f;
   for (int c0 = 0; c0 < p.n; c0 += CHUNK) {
     const int c1 = min(c0 + CHUNK, p.n);
-    bool stopped = !p.inside;  // chunk re-arm
+    s.stopped = !p.inside;  // chunk re-arm
     for (int j0 = c0; j0 < c1; j0 += 32) {
-      if (!__any_sync(FULL, !stopped)) break;
+      if (!__any_sync(FULL, !s.stopped)) break;
       const int n = warp_group(recs, dup, M, p.start + j0, p.start + c1,
                                rect);
       for (int k = 0; k < n; ++k) {
         float v[9];
 #pragma unroll
         for (int r = 0; r < 9; ++r) v[r] = 0.f;
-        bool touched = false;
         const Rec& rec = recs[k];
-        if (!stopped) {
-          const float4 a4 = rec.p, b4 = rec.q;
-          const float A = a4.z, B = a4.w, C = b4.x;
-          const float dx = __fsub_rn(a4.x, px);
-          const float dy = __fsub_rn(a4.y, py);
-          const float power = ewa_power(A, B, C, dx, dy);
-          const float e = expf(power);
-          const float a = fminf(ALPHA_MAX, __fmul_rn(b4.y, e));
-          if (!(power > 0.f || a < ALPHA_MIN)) {
-            const float incl = __fadd_rn(log_t, log1pf(-a));
-            if (incl < LOG_T_EPS) {
-              stopped = true;
-            } else {
-              const float t_before = __expf(log_t);
-              const float w = a * t_before;
-              const float cgv = g0 * b4.z + g1 * b4.w + g2 * rec.s.x;
-              u_incl += w * cgv;
-              const float dalpha =
-                  cgv * t_before -
-                  __fdividef((s_tot - u_incl) + tb, fmaxf(1.f - a, 1e-6f));
-              v[6] = g0 * w;
-              v[7] = g1 * w;
-              v[8] = g2 * w;
-              if (a < ALPHA_MAX) {
-                const float dpow = dalpha * a;
-                v[0] = -dpow * (A * dx + B * dy);
-                v[1] = -dpow * (C * dy + B * dx);
-                v[2] = -0.5f * dpow * dx * dx;
-                v[3] = -dpow * dx * dy;
-                v[4] = -0.5f * dpow * dy * dy;
-                v[5] = dalpha * e;
-              }
-              touched = true;
-              log_t = incl;
-            }
-          }
-        }
+        const bool touched = pair_grad(rec, px, py, s, v);
         if (__any_sync(FULL, touched))  // warp-uniform
           warp_sum_into(v, dgrad + __float_as_int(rec.s.y), (int)M, lane);
       }

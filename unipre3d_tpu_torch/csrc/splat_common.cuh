@@ -1,10 +1,14 @@
-// Device code shared by the dense and binned splat kernels (sm_90a):
+// Device code shared by the splat kernels (sm_90a): the walk's thresholds,
 // the EWA power in the plain versions' rounding, the conservative cull of a
 // table column against a pixel rectangle, the staged column record and the
-// warp reduction of a column's nine gradient terms.
+// warp reduction of a column's nine gradient terms (all three kernel
+// pairs); the culled 32-column group and the per-pair forward and backward
+// arithmetic of a warp's walk (the binned and streaming pairs, whose walks
+// differ in what they walk, a tile's duplicate list or the flagged chunks
+// of the global depth order, and in the pixels of a lane).
 //
 // kernels.py hashes this header with every source, so an edit here rebuilds
-// both libraries.
+// every library.
 //
 // The cull (the plain twin is splat_dense.py:cull_keeps): the pair is live
 // at a pixel only where o exp(power) >= 1/255, i.e. where d' M d <= 2 ln(255
@@ -32,6 +36,11 @@
 namespace splat {
 
 constexpr unsigned FULL = 0xffffffffu;
+// the walk: a pair is skipped below alpha 1/255, alpha is capped at 0.99,
+// and a pixel stops where log T would fall below log(1e-4)
+constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
+constexpr float ALPHA_MAX = 0.99f;
+constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
 // the cull's margins (splat_dense.py holds the same)
 constexpr double CULL_DEFLATE = 1e-5;
 constexpr double CULL_TAU_SLACK = 1e-3;
@@ -143,6 +152,171 @@ __device__ __forceinline__ void warp_sum_into(float (&v)[9],
   if ((lane & 3) == 0 && v[0] != 0.f)
     atomicAdd(&dgc[(size_t)(lane >> 2) * stride], v[0]);
   if (lane == 1 && s8 != 0.f) atomicAdd(&dgc[(size_t)8 * stride], s8);
+}
+
+// ---- the warp walk (the binned and streaming kernels) ----
+
+// A warp's pixel rectangle x0, x1, y0, y1.
+struct Rect {
+  int x0, x1, y0, y1;
+};
+
+// Loads columns j0 + lane (j0 + lane < j1) of the table ``tab`` (rows 0-8,
+// row stride ``stride``), culls each against the warp's rectangle and
+// stores the kept ones, in depth order, as records recs[0, n) (rec.s.y:
+// the column); returns n. Brackets its stores with __syncwarp, so the
+// previous group's records are consumed and the new ones visible.
+__device__ __forceinline__ int warp_group(Rec* recs,
+                                          const float* __restrict__ tab,
+                                          long long stride, int j0, int j1,
+                                          const Rect& r) {
+  const int lane = threadIdx.x & 31, j = j0 + lane;
+  float v[9];
+  bool keep = false;
+  if (j < j1) {
+#pragma unroll
+    for (int k = 0; k < 9; ++k) v[k] = tab[(size_t)k * stride + j];
+    keep = rect_keeps(v[0], v[1], v[2], v[3], v[4], v[5], r.x0, r.x1, r.y0,
+                      r.y1);
+  }
+  const unsigned ballot = __ballot_sync(FULL, keep);
+  __syncwarp();
+  if (keep) {
+    Rec& rec = recs[__popc(ballot & ((1u << lane) - 1u))];
+    rec.p = make_float4(v[0], v[1], v[2], v[3]);
+    rec.q = make_float4(v[4], v[5], v[6], v[7]);
+    rec.s = make_float4(v[8], __int_as_float(j), 0.f, 0.f);
+  }
+  __syncwarp();
+  return __popc(ballot);
+}
+
+// A pair's alpha and log(1 - alpha) and whether the walk skips it (power >
+// 0 or alpha < 1/255).
+struct Pair {
+  float a, l;
+  bool skip;
+};
+
+__device__ __forceinline__ Pair pair_of(const Rec& rec, float px, float py) {
+  const float dx = __fsub_rn(rec.p.x, px);
+  const float dy = __fsub_rn(rec.p.y, py);
+  const float power = ewa_power(rec.p.z, rec.p.w, rec.q.x, dx, dy);
+  Pair q;
+  q.a = fminf(ALPHA_MAX, __fmul_rn(rec.q.y, expf(power)));
+  q.skip = power > 0.f || q.a < ALPHA_MIN;
+  q.l = log1pf(-q.a);
+  return q;
+}
+
+// Blends a pair into the pixel's colour and log T, in the plain version's
+// order; false where it stops the pixel (log T would fall below log 1e-4).
+__device__ __forceinline__ bool blend(const Pair& q, const Rec& rec,
+                                      float& log_t, float& cr, float& cg,
+                                      float& cb) {
+  if (q.skip) return true;
+  const float incl = __fadd_rn(log_t, q.l);
+  if (incl < LOG_T_EPS) return false;
+  const float w = __fmul_rn(q.a, expf(log_t));
+  cr = __fadd_rn(cr, __fmul_rn(w, rec.q.z));
+  cg = __fadd_rn(cg, __fmul_rn(w, rec.q.w));
+  cb = __fadd_rn(cb, __fmul_rn(w, rec.s.x));
+  log_t = incl;
+  return true;
+}
+
+// A pixel of the backward: its cotangent g, tot = sum_c g (out - bg
+// T_final) and T_final (g . bg), and the walk's state.
+struct GradPixel {
+  float g0, g1, g2, s_tot, tb;
+  float log_t, u_incl;  // log T after the last contributing pair; the
+                        // inclusive prefix of w (g . c)
+  bool stopped;
+};
+
+// The backward's step over one record at one pixel (the forward's skip
+// and stop decisions, then dL/dalpha = (g . c) T_before - (s_i + T_final
+// (g . bg)) / max(1 - alpha, 1e-6) with s_i = tot - the inclusive prefix,
+// through alpha only where alpha < 0.99): the pair's nine gradient terms
+// into v (zeroed by the caller); true where the pair contributes. Only
+// values that feed the gradient alone take fast intrinsics (T before the
+// pair, the division).
+__device__ __forceinline__ bool pair_grad(const Rec& rec, float px, float py,
+                                          GradPixel& s, float (&v)[9]) {
+  if (s.stopped) return false;
+  const float4 a4 = rec.p, b4 = rec.q;
+  const float A = a4.z, B = a4.w, C = b4.x;
+  const float dx = __fsub_rn(a4.x, px);
+  const float dy = __fsub_rn(a4.y, py);
+  const float power = ewa_power(A, B, C, dx, dy);
+  const float e = expf(power);
+  const float a = fminf(ALPHA_MAX, __fmul_rn(b4.y, e));
+  if (power > 0.f || a < ALPHA_MIN) return false;
+  const float incl = __fadd_rn(s.log_t, log1pf(-a));
+  if (incl < LOG_T_EPS) {
+    s.stopped = true;
+    return false;
+  }
+  const float t_before = __expf(s.log_t);
+  const float w = a * t_before;
+  const float cgv = s.g0 * b4.z + s.g1 * b4.w + s.g2 * rec.s.x;
+  s.u_incl += w * cgv;
+  const float dalpha =
+      cgv * t_before -
+      __fdividef((s.s_tot - s.u_incl) + s.tb, fmaxf(1.f - a, 1e-6f));
+  v[6] = s.g0 * w;
+  v[7] = s.g1 * w;
+  v[8] = s.g2 * w;
+  if (a < ALPHA_MAX) {
+    const float dpow = dalpha * a;
+    v[0] = -dpow * (A * dx + B * dy);
+    v[1] = -dpow * (C * dy + B * dx);
+    v[2] = -0.5f * dpow * dx * dx;
+    v[3] = -dpow * dx * dy;
+    v[4] = -0.5f * dpow * dy * dy;
+    v[5] = dalpha * e;
+  }
+  s.log_t = incl;
+  return true;
+}
+
+// The backward's pixel of a (render) image plane: its cotangent, tot and
+// T_final (g . bg) at flat index q of an image of hw pixels; all zero for
+// a lane outside its tile.
+__device__ __forceinline__ GradPixel grad_pixel(
+    bool inside, size_t r, size_t hw, size_t q, const float* __restrict__ bg,
+    const float* __restrict__ logt, const float* __restrict__ tot,
+    const float* __restrict__ gout) {
+  GradPixel s;
+  s.g0 = s.g1 = s.g2 = s.s_tot = s.tb = 0.f;
+  s.log_t = s.u_incl = 0.f;
+  s.stopped = !inside;
+  if (inside) {
+    const float* go = gout + r * 3 * hw + q;
+    s.g0 = go[0];
+    s.g1 = go[hw];
+    s.g2 = go[2 * hw];
+    s.s_tot = tot[r * hw + q];
+    // background share of dL/dalpha: T_final (bg . g)
+    s.tb = expf(logt[r * hw + q]) * (bg[0] * s.g0 + bg[1] * s.g1 +
+                                     bg[2] * s.g2);
+  }
+  return s;
+}
+
+// Writes a forward pixel: out = colour + bg T_final, and log T_final.
+__device__ __forceinline__ void write_pixel(size_t r, size_t hw, size_t q,
+                                            const float* __restrict__ bg,
+                                            float cr, float cg, float cb,
+                                            float log_t,
+                                            float* __restrict__ out,
+                                            float* __restrict__ logt) {
+  const float t = expf(log_t);
+  float* o = out + r * 3 * hw + q;
+  o[0] = __fadd_rn(cr, __fmul_rn(bg[0], t));
+  o[hw] = __fadd_rn(cg, __fmul_rn(bg[1], t));
+  o[2 * hw] = __fadd_rn(cb, __fmul_rn(bg[2], t));
+  logt[r * hw + q] = log_t;
 }
 
 }  // namespace splat

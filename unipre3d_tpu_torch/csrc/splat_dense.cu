@@ -94,10 +94,7 @@ constexpr int TILE = 16;
 constexpr int THREADS = TILE * TILE;
 constexpr int WARPS = THREADS / 32;
 constexpr int MAX_CHUNK = 512;
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float POWER_SKIP = 1e-4f;
-constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
+constexpr float POWER_SKIP = 1e-4f;  // the dense kernels' power skip
 
 // Culls columns [c0, c0 + chunk_n) of the render's table g against the
 // CTA's tile and writes the survivors, in depth order, to recs[0, n).

@@ -30,255 +30,279 @@
 //     only where the pair is live and alpha < 0.99.
 // Every operation that decides a skip or a stop (the EWA power, alpha,
 // log T) is rounded op by op in the plain version's order (no FMA
-// contraction), with expf/log1pf as torch's own CUDA exp/log1p, so the
-// kernel and the plain version agree on T bit for bit. The JAX kernel sums
-// the in-chunk log(1 - alpha) with a log-step scan; the port sums them in
-// depth order, which rounds otherwise (held to JAX at a stated tolerance).
+// contraction), with expf/log1pf as torch's own CUDA exp/log1p, and so are
+// the colour sums, so the kernel and the plain version agree on T and the
+// images bit for bit (splat_common.cuh: pair_of, blend; the backward's
+// pair_grad takes fast intrinsics only for values that feed the gradient
+// alone). The JAX kernel sums the in-chunk log(1 - alpha) with a log-step
+// scan; the port sums them in depth order, which rounds otherwise (held to
+// JAX at a stated tolerance).
 //
-// Launch: one CTA of 256 threads per (render, tile, group of 256 pixels of
-// the tile), one thread per pixel: a 32x32 tile (the object's 128^2) takes
-// four CTAs, an 8x32 tile (the scene's 120x160) one. The flags are per
-// tile, so how a tile's pixels are split over CTAs changes nothing. A CTA
-// walks the flagged chunks of its tile in depth order and stages each in
-// batches of 256 columns (9 KB of shared memory); every thread walks a batch
-// front to back and stops at its pixel's stop, and the CTA leaves a chunk
-// once all its pixels have stopped in it.
+// Launch: one CTA of one warp per (render, tile, warp patch), two pixels a
+// lane: a warp owns an 8x8 patch of its tile (rows y and y + 4 a lane;
+// pixels_of), so an 8x32 tile (the scene's 120x160) holds 4 patches and a
+// 32x32 tile (the object's 128^2) 16. Each warp walks its tile's flagged
+// chunks (found 32 flags at a time with a ballot) in depth order, on its
+// own, with no barrier: it takes a chunk 32 columns at a time, each lane
+// loading one column (rows 0-8, from L2) and culling it against the warp's
+// pixel rectangle (rect_keeps, splat_common.cuh; the plain twin is
+// splat_stream.py:patch_survivors_ref); the kept columns are compacted in
+// lane order, which is depth order (ballot + popc), into 48-byte records
+// in shared memory, and the warp walks them, each lane for both its
+// pixels. A culled pair is skipped by the walk at every pixel of the patch
+// (the test culls on alpha < 1/255 alone, so it is conservative for the
+// power > 0 skip too): it neither adds colour nor stops a pixel, so the
+// chunk is still composited whole, and the stops and re-arms are the
+// unculled walk's. The warp leaves a chunk once its 64 pixels have stopped
+// in it.
 //
-// What bounds it on the H100: per contributing (pixel, gaussian) pair the
-// forward does ~24 FP32 operations and three transcendentals (exp of the
-// power, log1p, exp of log T), the backward about three times that plus a
-// warp reduction of nine terms. Bytes are small: the table is read once per
-// CTA from L2 for the flagged chunks, each pixel's outputs written once. So
-// both kernels are bound by the transcendentals (chip_smoke.py's bound_ms).
-// The per-pixel serial walk holds them above it: one thread walks its
-// pixel's whole depth order, and every flagged chunk is walked at least up
-// to the last stop of the CTA's pixels.
+// What bounds it on the H100: the function needs the contributing (pixel,
+// gaussian) pairs, ~24 FP32 operations and three transcendentals each (exp
+// of the power, log1p, exp of log T) forward and about three times that
+// backward, and the table's columns read once; at the scene load the bytes
+// set that bound, at a few hundredths of a millisecond (chip_smoke.py
+// bound_ms), far below both kernels. The chunk rule makes the plain walk
+// test every column of a flagged chunk up to each pixel's stop; the cull
+// below spares the kernels most of those tests, and what they still do
+// (groups, walk) is the distance to the bound. The first port ran one
+// thread a pixel, 256 a
+// CTA, staged each flagged chunk in 256-column batches between CTA-wide
+// barriers, so every batch waited for the slowest of 256 pixels, and every
+// pixel tested every column up to its stop. Here the cull drops the
+// columns the patch's pixels all skip before the walk, a warp waits only
+// for its own pixels, and the cost of staging and culling scales with the
+// columns walked (a group of 32 at a time), not with the 512 columns of a
+// flagged chunk. What is left is instruction issue, most of it in the
+// groups (the nine loads, the cull in double, the compaction: a 4x8 warp
+// needs ~1.8 groups a flagged chunk at the scene load, for ~1.3 kept
+// columns a group) and less in the walk (per-warp clock64 in a copy of
+// the source). Hence two pixels a lane: a group's loads and cull serve 64
+// pixels, a record's loads two pixel walks, and the backward's reduction
+// two pixels' terms; the scene load's 2,400 warps also fit the card in one
+// wave (4,800 one-pixel warps took two, the second on ~8 warps an SM).
+// At the scene load on an H100 80GB HBM3 at 700 W
+// (tools/time_stream_kernels.py): 0.66 / 0.77 ms forward / backward,
+// against 0.93 / 1.08 for 4x8 patches of one pixel a lane and 0.81 / 0.94
+// for four pixels a lane (8x16 patches, 116 registers). 90 registers
+// backward, 76 forward, no spills. chip_smoke.py prints the warp-column
+// iterations of both the first port's 1x32 rows walking every column and
+// these patches walking the cull's survivors.
 //
-// Backward reduction: a column is shared by every tile of its render, so
-// each warp reduces its 32 pixels' nine terms per column with shuffles
-// (skipped when no lane touched the column), lane 0 adds the sums into a
-// shared [9, 256] accumulator, and the CTA adds each non-zero accumulator
-// entry to dgrad [R, 16, n_pad] with one global atomicAdd. Atomic order
-// changes from run to run: gradients agree with the plain version to the
-// rounding of the sum order, not bit for bit.
+// Backward reduction: a column is shared by every tile of its render. A
+// warp that touched a column reduces its nine terms with the 14-shuffle
+// reduce-scatter of splat_common.cuh (warp_sum_into) and nine lanes add
+// them to the column's rows of dgrad [R, 16, n_pad] with global atomics
+// (the first port's shared [9, 256] accumulator compiled to compare-and-
+// swap loops, and was zeroed and flushed every batch). Atomic order changes
+// from run to run: gradients agree with the plain version to the rounding
+// of the sum order, not bit for bit.
 
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
+
+#include "splat_common.cuh"
 
 namespace {
 
-constexpr int ROWS = 16;
-constexpr int THREADS = 256;  // pixels of a tile per CTA
-constexpr int CHUNK = 512;    // the T re-arm boundary and the flag's width
-constexpr int BATCH = 256;    // columns staged in shared memory at a time
-constexpr int MAX_TILE_PIXELS = 1024;
-constexpr float ALPHA_MIN = (float)(1.0 / 255.0);
-constexpr float ALPHA_MAX = 0.99f;
-constexpr float LOG_T_EPS = -9.210340371976184f;  // log(1e-4)
-constexpr unsigned FULL = 0xffffffffu;
+using namespace splat;
 
-// EWA power -0.5 (A dx^2 + C dy^2) - B dx dy, op by op without contraction
-__device__ __forceinline__ float ewa_power(float A, float B, float C, float dx,
-                                          float dy) {
-  const float q = __fadd_rn(__fmul_rn(__fmul_rn(A, dx), dx),
-                            __fmul_rn(__fmul_rn(C, dy), dy));
-  return __fsub_rn(__fmul_rn(-0.5f, q), __fmul_rn(__fmul_rn(B, dx), dy));
+constexpr int ROWS = 16;
+constexpr int CHUNK = 512;  // the T re-arm boundary and the flag's width
+constexpr int MAX_TILE_PIXELS = 1024;
+
+// A warp's patch of its tile: BLOCKS_Y x BLOCKS_X blocks of 4x8 pixels,
+// each lane one pixel of every block (lane / 8, lane % 8 within it), where
+// the patch divides the tile; else 32 NPX pixels of the tile in row-major
+// order (pixel t + 32 h of lane t). splat_stream.py:warp_of_pixel is the
+// plain twin of this map.
+constexpr int BLOCKS_Y = 2, BLOCKS_X = 1;
+constexpr int NPX = BLOCKS_Y * BLOCKS_X;  // pixels a lane
+constexpr int PATCH_Y = 4 * BLOCKS_Y, PATCH_X = 8 * BLOCKS_X;
+
+__host__ __device__ __forceinline__ int patches_of(int tile_h, int tile_w) {
+  return (tile_h * tile_w + 32 * NPX - 1) / (32 * NPX);
 }
 
-struct Pixel {
-  int r, tile, x, y;
-  bool inside;
+struct Pixels {
+  int r, tile;
+  int x[NPX], y[NPX];
+  float px[NPX], py[NPX];  // x, y as floats
+  bool inside[NPX];
 };
 
-// The CTA's render and tile, and this thread's pixel.
-__device__ __forceinline__ Pixel pixel_of(int n_tiles, int groups,
-                                          int tiles_x, int tile_h,
-                                          int tile_w) {
-  Pixel p;
-  const int b = blockIdx.x;
-  p.r = b / (n_tiles * groups);
-  const int rem = b - p.r * n_tiles * groups;
-  p.tile = rem / groups;
-  const int t = (rem - p.tile * groups) * THREADS + (int)threadIdx.x;
-  p.inside = t < tile_h * tile_w;
-  p.x = (p.tile % tiles_x) * tile_w + (p.inside ? t % tile_w : 0);
-  p.y = (p.tile / tiles_x) * tile_h + (p.inside ? t / tile_w : 0);
+// The CTA's (one warp's) render and tile, and this lane's pixels.
+__device__ __forceinline__ Pixels pixels_of(int n_tiles, int tiles_x,
+                                            int tile_h, int tile_w) {
+  Pixels p;
+  const int per_tile = patches_of(tile_h, tile_w);
+  const int b = blockIdx.x / per_tile, warp = blockIdx.x - b * per_tile;
+  const int lane = threadIdx.x;
+  p.r = b / n_tiles;
+  p.tile = b - p.r * n_tiles;
+  const bool patched = tile_h % PATCH_Y == 0 && tile_w % PATCH_X == 0;
+  const int across = tile_w / PATCH_X;
+#pragma unroll
+  for (int h = 0; h < NPX; ++h) {
+    int lx, ly;
+    if (patched) {
+      ly = (warp / across) * PATCH_Y + (h / BLOCKS_X) * 4 + lane / 8;
+      lx = (warp % across) * PATCH_X + (h % BLOCKS_X) * 8 + lane % 8;
+      p.inside[h] = true;
+    } else {
+      const int t = warp * 32 * NPX + h * 32 + lane;
+      p.inside[h] = t < tile_h * tile_w;
+      ly = p.inside[h] ? t / tile_w : 0;
+      lx = p.inside[h] ? t % tile_w : 0;
+    }
+    p.x[h] = (p.tile % tiles_x) * tile_w + lx;
+    p.y[h] = (p.tile / tiles_x) * tile_h + ly;
+    p.px[h] = (float)p.x[h];
+    p.py[h] = (float)p.y[h];
+  }
   return p;
 }
 
-__device__ __forceinline__ void stage(float (*tab)[BATCH],
-                                      const float* __restrict__ g, int n_pad,
-                                      int c0) {
-  for (int k = threadIdx.x; k < 9 * BATCH; k += THREADS) {
-    const int row = k / BATCH, col = k - row * BATCH;
-    tab[row][col] = g[(size_t)row * n_pad + c0 + col];
+// The warp's pixel rectangle (over its pixels inside the tile).
+__device__ __forceinline__ Rect patch_rect(const Pixels& p) {
+  int x0 = INT_MAX, x1 = INT_MIN, y0 = INT_MAX, y1 = INT_MIN;
+#pragma unroll
+  for (int h = 0; h < NPX; ++h) {
+    if (!p.inside[h]) continue;
+    x0 = min(x0, p.x[h]);
+    x1 = max(x1, p.x[h]);
+    y0 = min(y0, p.y[h]);
+    y1 = max(y1, p.y[h]);
   }
+  Rect r;
+  r.x0 = __reduce_min_sync(FULL, x0);
+  r.x1 = __reduce_max_sync(FULL, x1);
+  r.y0 = __reduce_min_sync(FULL, y0);
+  r.y1 = __reduce_max_sync(FULL, y1);
+  return r;
 }
 
-__global__ void __launch_bounds__(THREADS)
+// The flagged chunks c0 + bit of the 32 flags fl[c0, c0 + 32): every lane
+// gets the same mask.
+__device__ __forceinline__ unsigned flagged(const int* __restrict__ fl,
+                                            int c0, int n_chunks) {
+  const int c = c0 + (int)threadIdx.x;
+  return __ballot_sync(FULL, c < n_chunks && fl[c] != 0);
+}
+
+// Whether every pixel of the warp has stopped.
+__device__ __forceinline__ bool all_stopped(const bool (&stopped)[NPX]) {
+  bool all = true;
+#pragma unroll
+  for (int h = 0; h < NPX; ++h) all = all && stopped[h];
+  return __all_sync(FULL, all);
+}
+
+__global__ void __launch_bounds__(32)
 stream_fwd_kernel(const float* __restrict__ data,
                   const int* __restrict__ flags, const float* __restrict__ bg,
                   float* __restrict__ out, float* __restrict__ logt, int n_pad,
                   int H, int W, int tile_h, int tile_w) {
-  __shared__ float tab[9][BATCH];
+  __shared__ Rec recs[32];
   const int tiles_x = W / tile_w, n_tiles = (H / tile_h) * tiles_x;
-  const int groups = (tile_h * tile_w + THREADS - 1) / THREADS;
   const int n_chunks = n_pad / CHUNK;
-  const Pixel p = pixel_of(n_tiles, groups, tiles_x, tile_h, tile_w);
-  const float px = (float)p.x, py = (float)p.y;
+  const Pixels p = pixels_of(n_tiles, tiles_x, tile_h, tile_w);
+  const Rect rect = patch_rect(p);
   const float* g = data + (size_t)p.r * ROWS * n_pad;
   const int* fl = flags + ((size_t)p.r * n_tiles + p.tile) * n_chunks;
 
-  float cr = 0.f, cg = 0.f, cb = 0.f;
-  float log_t = 0.f;  // log T after the last contributing gaussian
-  for (int c = 0; c < n_chunks; ++c) {
-    if (fl[c] == 0) continue;  // the same for every thread of the CTA
-    bool stopped = !p.inside;  // chunk re-arm
-    for (int j0 = 0; j0 < CHUNK; j0 += BATCH) {
-      // a barrier (the last batch is consumed) that also leaves the chunk
-      // once every pixel of the CTA has stopped in it
-      if (__syncthreads_count(!stopped) == 0) break;
-      stage(tab, g, n_pad, c * CHUNK + j0);
-      __syncthreads();
-      if (stopped) continue;
-      for (int i = 0; i < BATCH; ++i) {
-        const float dx = __fsub_rn(tab[0][i], px);
-        const float dy = __fsub_rn(tab[1][i], py);
-        const float power = ewa_power(tab[2][i], tab[3][i], tab[4][i], dx, dy);
-        if (power > 0.f) continue;
-        const float a = fminf(ALPHA_MAX, __fmul_rn(tab[5][i], expf(power)));
-        if (a < ALPHA_MIN) continue;
-        const float incl = __fadd_rn(log_t, log1pf(-a));
-        if (incl < LOG_T_EPS) {
-          stopped = true;
-          break;
+  float cr[NPX], cg[NPX], cb[NPX], log_t[NPX];  // log T after the last
+  bool stopped[NPX];                            // contributing gaussian
+#pragma unroll
+  for (int h = 0; h < NPX; ++h) cr[h] = cg[h] = cb[h] = log_t[h] = 0.f;
+  for (int f0 = 0; f0 < n_chunks; f0 += 32) {
+    for (unsigned set = flagged(fl, f0, n_chunks); set; set &= set - 1) {
+      const int c = f0 + __ffs((int)set) - 1;
+#pragma unroll
+      for (int h = 0; h < NPX; ++h) stopped[h] = !p.inside[h];  // re-arm
+      for (int j0 = c * CHUNK; j0 < (c + 1) * CHUNK; j0 += 32) {
+        // leave the chunk once every pixel of the warp has stopped in it
+        if (all_stopped(stopped)) break;
+        const int n = warp_group(recs, g, n_pad, j0, j0 + 32, rect);
+        for (int k = 0; k < n; ++k) {
+          const Rec& rec = recs[k];
+#pragma unroll
+          for (int h = 0; h < NPX; ++h)
+            if (!stopped[h])
+              stopped[h] = !blend(pair_of(rec, p.px[h], p.py[h]), rec,
+                                  log_t[h], cr[h], cg[h], cb[h]);
         }
-        const float w = __fmul_rn(a, expf(log_t));
-        cr = __fadd_rn(cr, __fmul_rn(w, tab[6][i]));
-        cg = __fadd_rn(cg, __fmul_rn(w, tab[7][i]));
-        cb = __fadd_rn(cb, __fmul_rn(w, tab[8][i]));
-        log_t = incl;
       }
     }
   }
-  if (p.inside) {
-    const float t = expf(log_t);
-    const size_t hw = (size_t)H * W, q = (size_t)p.y * W + p.x;
-    float* o = out + (size_t)p.r * 3 * hw + q;
-    o[0] = __fadd_rn(cr, __fmul_rn(bg[0], t));
-    o[hw] = __fadd_rn(cg, __fmul_rn(bg[1], t));
-    o[2 * hw] = __fadd_rn(cb, __fmul_rn(bg[2], t));
-    logt[(size_t)p.r * hw + q] = log_t;
-  }
+#pragma unroll
+  for (int h = 0; h < NPX; ++h)
+    if (p.inside[h])
+      write_pixel(p.r, (size_t)H * W, (size_t)p.y[h] * W + p.x[h], bg, cr[h],
+                  cg[h], cb[h], log_t[h], out, logt);
 }
 
-__global__ void __launch_bounds__(THREADS)
+__global__ void __launch_bounds__(32)
 stream_bwd_kernel(const float* __restrict__ data,
                   const int* __restrict__ flags, const float* __restrict__ bg,
                   const float* __restrict__ logt,
                   const float* __restrict__ tot,
                   const float* __restrict__ gout, float* __restrict__ dgrad,
                   int n_pad, int H, int W, int tile_h, int tile_w) {
-  __shared__ float tab[9][BATCH];
-  __shared__ float acc[9][BATCH];
+  __shared__ Rec recs[32];
   const int tiles_x = W / tile_w, n_tiles = (H / tile_h) * tiles_x;
-  const int groups = (tile_h * tile_w + THREADS - 1) / THREADS;
   const int n_chunks = n_pad / CHUNK;
-  const Pixel p = pixel_of(n_tiles, groups, tiles_x, tile_h, tile_w);
-  const float px = (float)p.x, py = (float)p.y;
-  const int lane = threadIdx.x & 31;
+  const Pixels p = pixels_of(n_tiles, tiles_x, tile_h, tile_w);
+  const int lane = threadIdx.x;
+  const Rect rect = patch_rect(p);
   const float* g = data + (size_t)p.r * ROWS * n_pad;
   float* dg = dgrad + (size_t)p.r * ROWS * n_pad;
   const int* fl = flags + ((size_t)p.r * n_tiles + p.tile) * n_chunks;
-
-  float g0 = 0.f, g1 = 0.f, g2 = 0.f, s_tot = 0.f, tb = 0.f;
-  if (p.inside) {
-    const size_t hw = (size_t)H * W, q = (size_t)p.y * W + p.x;
-    const float* go = gout + (size_t)p.r * 3 * hw + q;
-    g0 = go[0];
-    g1 = go[hw];
-    g2 = go[2 * hw];
-    s_tot = tot[(size_t)p.r * hw + q];
-    // background share of dL/dalpha: T_final (bg . g)
-    tb = expf(logt[(size_t)p.r * hw + q]) * (bg[0] * g0 + bg[1] * g1 +
-                                             bg[2] * g2);
-  }
-
-  float log_t = 0.f, u_incl = 0.f;
-  for (int c = 0; c < n_chunks; ++c) {
-    if (fl[c] == 0) continue;
-    bool stopped = !p.inside;  // chunk re-arm
-    for (int j0 = 0; j0 < CHUNK; j0 += BATCH) {
-      if (__syncthreads_count(!stopped) == 0) break;
-      const int c0 = c * CHUNK + j0;
-      stage(tab, g, n_pad, c0);
-      for (int k = threadIdx.x; k < 9 * BATCH; k += THREADS)
-        acc[k / BATCH][k % BATCH] = 0.f;
-      __syncthreads();
-      for (int i = 0; i < BATCH; ++i) {
-        if (!__any_sync(FULL, !stopped)) break;  // warp-uniform
-        float v[9];
+  GradPixel s[NPX];
+  bool stopped[NPX];
 #pragma unroll
-        for (int k = 0; k < 9; ++k) v[k] = 0.f;
-        bool touched = false;
-        if (!stopped) {
-          const float A = tab[2][i], B = tab[3][i], C = tab[4][i];
-          const float dx = __fsub_rn(tab[0][i], px);
-          const float dy = __fsub_rn(tab[1][i], py);
-          const float power = ewa_power(A, B, C, dx, dy);
-          const float e = expf(power);
-          const float a = fminf(ALPHA_MAX, __fmul_rn(tab[5][i], e));
-          if (!(power > 0.f || a < ALPHA_MIN)) {
-            const float incl = __fadd_rn(log_t, log1pf(-a));
-            if (incl < LOG_T_EPS) {
-              stopped = true;
-            } else {
-              const float t_before = expf(log_t);
-              const float w = __fmul_rn(a, t_before);
-              const float cgv = g0 * tab[6][i] + g1 * tab[7][i] + g2 * tab[8][i];
-              u_incl += w * cgv;
-              const float dalpha = cgv * t_before -
-                                   ((s_tot - u_incl) + tb) / fmaxf(1.f - a, 1e-6f);
-              v[6] = g0 * w;
-              v[7] = g1 * w;
-              v[8] = g2 * w;
-              if (a < ALPHA_MAX) {
-                const float dpow = dalpha * a;
-                v[0] = -dpow * (A * dx + B * dy);
-                v[1] = -dpow * (C * dy + B * dx);
-                v[2] = -0.5f * dpow * dx * dx;
-                v[3] = -dpow * dx * dy;
-                v[4] = -0.5f * dpow * dy * dy;
-                v[5] = dalpha * e;
-              }
+  for (int h = 0; h < NPX; ++h)
+    s[h] = grad_pixel(p.inside[h], p.r, (size_t)H * W,
+                      (size_t)p.y[h] * W + p.x[h], bg, logt, tot, gout);
+
+  for (int f0 = 0; f0 < n_chunks; f0 += 32) {
+    for (unsigned set = flagged(fl, f0, n_chunks); set; set &= set - 1) {
+      const int c = f0 + __ffs((int)set) - 1;
+#pragma unroll
+      for (int h = 0; h < NPX; ++h) s[h].stopped = !p.inside[h];  // re-arm
+      for (int j0 = c * CHUNK; j0 < (c + 1) * CHUNK; j0 += 32) {
+#pragma unroll
+        for (int h = 0; h < NPX; ++h) stopped[h] = s[h].stopped;
+        if (all_stopped(stopped)) break;
+        const int n = warp_group(recs, g, n_pad, j0, j0 + 32, rect);
+        for (int k = 0; k < n; ++k) {
+          const Rec& rec = recs[k];
+          // the lane's pixels' terms, summed, then over the warp
+          float v[9];
+#pragma unroll
+          for (int r = 0; r < 9; ++r) v[r] = 0.f;
+          bool touched = false;
+#pragma unroll
+          for (int h = 0; h < NPX; ++h) {
+            float w[9];
+#pragma unroll
+            for (int r = 0; r < 9; ++r) w[r] = 0.f;
+            if (pair_grad(rec, p.px[h], p.py[h], s[h], w)) {
               touched = true;
-              log_t = incl;
+#pragma unroll
+              for (int r = 0; r < 9; ++r) v[r] += w[r];
             }
           }
+          // the column is shared by every tile of the render: add
+          if (__any_sync(FULL, touched))  // warp-uniform
+            warp_sum_into(v, dg + __float_as_int(rec.s.y), n_pad, lane);
         }
-        if (__any_sync(FULL, touched)) {  // warp-uniform
-#pragma unroll
-          for (int k = 0; k < 9; ++k) {
-            float s = v[k];
-#pragma unroll
-            for (int off = 16; off > 0; off >>= 1)
-              s += __shfl_down_sync(FULL, s, off);
-            if (lane == 0 && s != 0.f) atomicAdd(&acc[k][i], s);
-          }
-        }
-      }
-      __syncthreads();
-      // the column is shared by every tile of the render: add, not store
-      for (int k = threadIdx.x; k < 9 * BATCH; k += THREADS) {
-        const int row = k / BATCH, col = k - row * BATCH;
-        const float s = acc[row][col];
-        if (s != 0.f) atomicAdd(&dg[(size_t)row * n_pad + c0 + col], s);
       }
     }
   }
 }
 
-// (render, tile, pixel group) blocks ride on gridDim.x
+// (render, tile, warp) blocks ride on gridDim.x
 inline bool shape_ok(int R, int n_pad, int H, int W, int tile_h, int tile_w) {
   return R > 0 && n_pad > 0 && n_pad % CHUNK == 0 && H > 0 && W > 0 &&
          tile_h > 0 && tile_w > 0 && H % tile_h == 0 && W % tile_w == 0 &&
@@ -286,8 +310,8 @@ inline bool shape_ok(int R, int n_pad, int H, int W, int tile_h, int tile_w) {
 }
 
 inline unsigned blocks_of(int R, int H, int W, int tile_h, int tile_w) {
-  const unsigned groups = (unsigned)((tile_h * tile_w + THREADS - 1) / THREADS);
-  return (unsigned)R * (unsigned)((H / tile_h) * (W / tile_w)) * groups;
+  return (unsigned)R * (unsigned)((H / tile_h) * (W / tile_w)) *
+         (unsigned)patches_of(tile_h, tile_w);
 }
 
 }  // namespace
@@ -300,7 +324,7 @@ int stream_splat_fwd(const float* data, const int* flags, const float* bg,
                      int tile_h, int tile_w, void* stream) {
   if (!shape_ok(R, n_pad, H, W, tile_h, tile_w))
     return (int)cudaErrorInvalidValue;
-  stream_fwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), THREADS, 0,
+  stream_fwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), 32, 0,
                       (cudaStream_t)stream>>>(data, flags, bg, out, logt,
                                               n_pad, H, W, tile_h, tile_w);
   return (int)cudaGetLastError();
@@ -313,7 +337,7 @@ int stream_splat_bwd(const float* data, const int* flags, const float* bg,
                      int tile_w, void* stream) {
   if (!shape_ok(R, n_pad, H, W, tile_h, tile_w))
     return (int)cudaErrorInvalidValue;
-  stream_bwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), THREADS, 0,
+  stream_bwd_kernel<<<blocks_of(R, H, W, tile_h, tile_w), 32, 0,
                       (cudaStream_t)stream>>>(data, flags, bg, logt, tot, gout,
                                               dgrad, n_pad, H, W, tile_h,
                                               tile_w);

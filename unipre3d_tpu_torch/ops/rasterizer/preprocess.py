@@ -121,7 +121,17 @@ def preprocess_gaussians(
     det_blur = c_xx * c_yy - c_xy * c_xy
 
     if antialiasing:
-        h_scale = torch.sqrt(torch.clamp_min(det_orig / det_blur, 2.5e-5))
+        # where the 2D covariance overflows (det_orig / det_blur = inf / inf
+        # or NaN) the ratio takes its limit, 1, on both sides of the
+        # division, so that no NaN reaches the opacity's gradient through
+        # the mask below; JAX (preprocess.py:157-158) gives NaN there, and
+        # equals this wherever it is finite
+        ok = torch.isfinite(det_orig) & torch.isfinite(det_blur) \
+            & (det_blur > 0.0)
+        one = torch.ones_like(det_blur)
+        ratio = torch.where(ok, torch.where(ok, det_orig, one)
+                            / torch.where(ok, det_blur, one), one)
+        h_scale = torch.sqrt(torch.clamp_min(ratio, 2.5e-5))
         opacities = opacities * h_scale
 
     det_ok = det_blur > 0.0
@@ -150,6 +160,8 @@ def preprocess_gaussians(
     dirs = means3d - cam_center.float()[..., None, :]
     dirs = dirs / torch.sqrt((dirs ** 2).sum(-1, keepdim=True) + 1e-12)
     color = sh_to_rgb_clamped(sh_degree, shs.float(), dirs)
+    # at degree 0 the colour does not see the cameras: one per render still
+    color = color.expand(*mean2d.shape[:-1], 3)
 
     return ProjectedGaussians(
         mean2d=mean2d, conic=conic, color=color,

@@ -19,6 +19,9 @@ Port of unipre3d_tpu/ops/rasterizer/render.py:
   (the streaming splat, splat_stream.py) or ``pallas_binned`` (the binned
   splat, at most 4 x ``capacity`` duplicates a tile)) and
   ``render_predicted``, its wrapper over a predicted-gaussian dict;
+  ``render_predicted_views``, the views of several cameras (the test
+  videos): on the ``pallas`` route all of them through the streaming
+  splat in one launch, on the others one ``render_predicted`` call a view;
 * ``auto_tile``.
 """
 
@@ -268,15 +271,10 @@ def rasterize_reference(means3d, opacities, scales, rotations, shs,
             "visibility_filter": pg.radius > 0}
 
 
-def render_predicted(pc: Dict[str, torch.Tensor], world_view_transform,
-                     full_proj_transform, camera_center, bg_color, cfg,
-                     scaling_modifier: float = 1.0, focals_pixels=None,
-                     gaussian_mask=None, use_reference: bool = False):
-    """One view of a predicted-gaussian dict ``{"xyz", "opacity",
-    "scaling", "rotation", "features_dc"[, "features_rest"]}`` (no batch
-    axis) under the composed config: ``auto_tile`` tiles, capacity
-    ``tpu.raster_tile_capacity`` and the renderer ``tpu.raster_impl``
-    (default ``xla``), or the brute-force reference."""
+def _predicted_inputs(pc: Dict[str, torch.Tensor], cfg,
+                      focals_pixels=None) -> tuple:
+    """A predicted-gaussian dict under the composed config -> (img_h,
+    img_w, tanfovx, tanfovy, opacity [N], shs [N, K, 3])."""
     if focals_pixels is None:
         tanfovx = tanfovy = math.tan(float(cfg.data.fov) * math.pi / 360)
     else:
@@ -292,11 +290,25 @@ def render_predicted(pc: Dict[str, torch.Tensor], world_view_transform,
         shs = torch.cat([pc["features_dc"], pc["features_rest"]], dim=1)
     else:
         shs = pc["features_dc"]
+    opacity = pc["opacity"].reshape(pc["xyz"].shape[:-1])    # [N] or [N, 1]
+    return img_h, img_w, tanfovx, tanfovy, opacity, shs
+
+
+def render_predicted(pc: Dict[str, torch.Tensor], world_view_transform,
+                     full_proj_transform, camera_center, bg_color, cfg,
+                     scaling_modifier: float = 1.0, focals_pixels=None,
+                     gaussian_mask=None, use_reference: bool = False):
+    """One view of a predicted-gaussian dict ``{"xyz", "opacity",
+    "scaling", "rotation", "features_dc"[, "features_rest"]}`` (no batch
+    axis) under the composed config: ``auto_tile`` tiles, capacity
+    ``tpu.raster_tile_capacity`` and the renderer ``tpu.raster_impl``
+    (default ``xla``), or the brute-force reference."""
+    img_h, img_w, tanfovx, tanfovy, opacity, shs = _predicted_inputs(
+        pc, cfg, focals_pixels)
     kwargs = dict(
         img_h=img_h, img_w=img_w, tanfovx=tanfovx, tanfovy=tanfovy,
         bg_color=bg_color, sh_degree=int(cfg.model.max_sh_degree),
         scale_modifier=scaling_modifier, gaussian_mask=gaussian_mask)
-    opacity = pc["opacity"].reshape(pc["xyz"].shape[:-1])    # [N] or [N, 1]
     args = (pc["xyz"], opacity, pc["scaling"], pc["rotation"],
             shs, world_view_transform, full_proj_transform, camera_center)
     if use_reference:
@@ -305,3 +317,35 @@ def render_predicted(pc: Dict[str, torch.Tensor], world_view_transform,
     kwargs["tile_h"], kwargs["tile_w"] = auto_tile(img_h, img_w)
     return rasterize(*args, capacity=int(tpu.get("raster_tile_capacity", 1024)),
                      impl=str(tpu.get("raster_impl", "xla")), **kwargs)
+
+
+def render_predicted_views(pc: Dict[str, torch.Tensor], world_view_transforms,
+                           full_proj_transforms, camera_centers, bg_color,
+                           cfg, gaussian_mask=None) -> torch.Tensor:
+    """The views of V cameras (``world_view_transforms`` and
+    ``full_proj_transforms`` [V, 4, 4], ``camera_centers`` [V, 3]) of one
+    predicted-gaussian dict (no batch axis) -> [V, 3, H, W]. On the
+    ``pallas`` route all V views go through the streaming splat in one
+    launch: the gaussians [N] are preprocessed against all V cameras at
+    once, as ``trainer.render_supervision_views`` does, then
+    ``rasterize_projected_stream`` renders them as R = V renders at
+    ``auto_tile`` tiles. Each view then equals ``render_predicted``'s bit
+    for bit: the preprocess is elementwise, and every render is sorted and
+    composited on its own. On the other routes one ``render_predicted``
+    call a view (the tiled renderer's chunk terms grow with the renders of
+    a call)."""
+    tpu = cfg.get("tpu") or {}
+    if str(tpu.get("raster_impl", "xla")) != "pallas":
+        return torch.stack([render_predicted(
+            pc, wv, fp, cc, bg_color, cfg,
+            gaussian_mask=gaussian_mask)["render"]
+            for wv, fp, cc in zip(world_view_transforms,
+                                  full_proj_transforms, camera_centers)])
+    img_h, img_w, tanfovx, tanfovy, opacity, shs = _predicted_inputs(pc, cfg)
+    pg = preprocess_gaussians(
+        pc["xyz"], opacity, pc["scaling"], pc["rotation"], shs,
+        world_view_transforms, full_proj_transforms, camera_centers, img_h,
+        img_w, tanfovx, tanfovy, int(cfg.model.max_sh_degree),
+        gaussian_mask=gaussian_mask)                 # fields [V, N, ...]
+    return rasterize_projected_stream(pg, bg_color, img_h, img_w,
+                                      *auto_tile(img_h, img_w))

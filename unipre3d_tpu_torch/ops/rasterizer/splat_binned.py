@@ -171,24 +171,32 @@ def warp_of_pixel(tile_h: int, tile_w: int) -> torch.Tensor:
     return t // 32
 
 
+def warp_rects(warp: torch.Tensor, tile_w: int) -> tuple:
+    """Each kernel warp's pixel rectangle within its tile, from the warp of
+    each pixel (``warp`` [tile_h * tile_w], row-major; e.g.
+    ``warp_of_pixel``): (x0, x1, y0, y1), each [n_warps] float64."""
+    t = torch.arange(warp.shape[0], device=warp.device)
+    n_warps = int(warp.max()) + 1
+
+    def extreme(v, how):
+        return torch.zeros(n_warps, dtype=v.dtype, device=warp.device
+                           ).scatter_reduce(0, warp, v, how,
+                                            include_self=False).double()
+    x, y = t % tile_w, t // tile_w
+    return (extreme(x, "amin"), extreme(x, "amax"), extreme(y, "amin"),
+            extreme(y, "amax"))
+
+
 def patch_survivors_ref(seg, table, R: int, img_h: int, img_w: int,
                         tile_h: int, tile_w: int, maxn: int) -> torch.Tensor:
     """Plain twin of the kernels' per-warp cull: for each duplicate (column
     of ``table`` [9, D], i.e. each position of its tile's list) the warps
     that keep it, [D] int64 with bit w set where warp w's pixel rectangle
-    (``warp_of_pixel``) survives :func:`cull_keeps`; 0 past the tile's cap
+    (``warp_rects``) survives :func:`cull_keeps`; 0 past the tile's cap
     ``maxn`` (never composited)."""
     dev = table.device
-    warp = warp_of_pixel(tile_h, tile_w).to(dev)
-    t = torch.arange(tile_h * tile_w, device=dev)
-    n_warps = int(warp.max()) + 1
-
-    def extreme(v, how):
-        return torch.zeros(n_warps, dtype=v.dtype, device=dev).scatter_reduce(
-            0, warp, v, how, include_self=False).double()
-    x, y = t % tile_w, t // tile_w
-    rect = (extreme(x, "amin"), extreme(x, "amax"), extreme(y, "amin"),
-            extreme(y, "amax"))
+    rect = warp_rects(warp_of_pixel(tile_h, tile_w).to(dev), tile_w)
+    n_warps = rect[0].shape[0]
     tiles_x = img_w // tile_w
     n_tiles = (img_h // tile_h) * tiles_x
     start = seg.long()

@@ -37,6 +37,12 @@ lands within rounding of log(1e-4) may take the other stop decision). The
 backward's suffix s_i (JAX: a back-to-front carry over chunks) is formed
 front to back as tot - the inclusive prefix of w (g . c), with tot = sum_c
 g (out - bg T_final) from the forward's output, as the binned port does.
+
+The kernels run one warp an 8x8 patch of a tile (two pixels a lane) and
+cull each group of 32 columns against the patch before walking it
+(csrc/splat_stream.cu); ``patch_survivors_ref`` is the plain twin of that
+cull, and the plain forward's tally (``stats``) counts the warp-column
+iterations with and without it.
 """
 
 from __future__ import annotations
@@ -48,9 +54,12 @@ from unipre3d_tpu_torch.ops.rasterizer.pack import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, ROWS, pack)
 from unipre3d_tpu_torch.ops.rasterizer.preprocess import (
     ProjectedGaussians, sort_by_depth)
+from unipre3d_tpu_torch.ops.rasterizer.splat_binned import warp_rects
+from unipre3d_tpu_torch.ops.rasterizer.splat_dense import cull_keeps
 
 CHUNK = 512              # table columns per chunk (T re-arm, flag width)
 MAX_TILE_PIXELS = 1024
+PATCH = 8                # a kernel warp's 8x8 patch, two pixels a lane
 
 # the kernels' C entry points, with their launch counts
 STREAM_FWD = kernels.CudaKernel("splat_stream", "stream_splat_fwd", 5, 6)
@@ -94,6 +103,44 @@ def chunk_flags(mean2d, radius, valid, img_h: int, img_w: int, tile_h: int,
     return ov.reshape(R, T, n_pad // CHUNK, CHUNK).any(-1).to(torch.int32)
 
 
+def warp_of_pixel(tile_h: int, tile_w: int) -> torch.Tensor:
+    """The kernels' warp of each pixel of a tile, [tile_h * tile_w] int64
+    in row-major pixel order: 8x8 patches, row by row, where 8 divides the
+    tile's height and width, else 64 consecutive pixels (two a lane)."""
+    t = torch.arange(tile_h * tile_w)
+    y, x = t // tile_w, t % tile_w
+    if tile_h % PATCH == 0 and tile_w % PATCH == 0:
+        return (y // PATCH) * (tile_w // PATCH) + x // PATCH
+    return t // (2 * 32)
+
+
+def patch_survivors_ref(data, flags, img_h: int, img_w: int, tile_h: int,
+                        tile_w: int) -> torch.Tensor:
+    """Plain twin of the kernels' per-warp cull: [R, n_tiles, N_pad] int64,
+    bit w set where warp w of the tile (``warp_of_pixel``) keeps the table
+    column (its pixel rectangle survives ``splat_dense.cull_keeps``); 0 in
+    the chunks the tile does not flag (never walked)."""
+    R, _, n_pad = data.shape
+    dev = data.device
+    x0, y0 = (t.double()[:, None] for t in tile_origins(
+        img_h, img_w, tile_h, tile_w, dev))
+    rx0, rx1, ry0, ry1 = warp_rects(warp_of_pixel(tile_h, tile_w).to(dev),
+                                    tile_w)
+    rect = (x0 + rx0, x0 + rx1, y0 + ry0, y0 + ry1)   # each [T, warps, 1]
+    rect = tuple(v[:, :, None] for v in rect)
+    shift = torch.arange(rx0.shape[0], device=dev)[:, None]
+    out = torch.zeros(R, flags.shape[1], n_pad, dtype=torch.int64,
+                      device=dev)
+    for r in range(R):
+        on = flags[r].bool()                                 # [T, chunks]
+        for c in on.any(0).nonzero().flatten().tolist():
+            cols = slice(c * CHUNK, (c + 1) * CHUNK)
+            keep = cull_keeps(data[r, :6, None, None, cols], *rect)
+            bits = (keep.long() << shift).sum(1)             # [T, 512]
+            out[r, :, cols] = torch.where(on[:, c, None], bits, 0)
+    return out
+
+
 # --------------------------------------------------------------------------
 # plain PyTorch versions (the CPU path; the reference for the kernels)
 # --------------------------------------------------------------------------
@@ -134,26 +181,46 @@ def _walk(data, flags, px, py, stats=None):
     function must test), ``rearm``
     (contributions of pixels that stopped in an earlier chunk), each an
     int64 tensor, and ``hit`` [R, n_tiles, N_pad] bool (the column adds
-    colour to a pixel of the tile)."""
+    colour to a pixel of the tile). Given ``stats["survivors"]`` (the
+    twin's bits, :func:`patch_survivors_ref`) and ``stats["tile"]`` (the
+    tile's (height, width)), it also counts warp-column iterations, a warp
+    walking a column of a flagged chunk while one of its pixels has not
+    stopped in the chunk: ``iters_rows``, warps of 32 consecutive pixels
+    walking every column (the first port's kernels), and
+    ``iters_patches``, the kernels' warps (``warp_of_pixel``) walking the
+    columns the twin keeps for them; ``groups``, the 32-column groups those
+    warps load and cull; ``live``, the pairs the walk does not skip (alpha
+    != 0), and ``missed``, those of them the twin drops for the pixel's
+    warp."""
     R, _, n_pad = data.shape
     shape = (R, px.shape[0], px.shape[1])
     log_t = torch.zeros(shape, device=data.device)
     stopped = torch.zeros(shape, dtype=torch.bool, device=data.device)
     zero = torch.zeros((), device=data.device)
+    cull = stats is not None and "survivors" in stats
     if stats is not None:
         stats.update({k: torch.zeros((), dtype=torch.int64,
                                      device=data.device)
-                      for k in ("pairs", "evaluated", "rearm")})
+                      for k in ("pairs", "evaluated", "rearm")
+                      + (("iters_rows", "iters_patches", "groups", "live",
+                          "missed") if cull else ())})
         stats["hit"] = torch.zeros(*shape[:2], n_pad, dtype=torch.bool,
                                    device=data.device)
         earlier = stopped                       # stopped in an earlier chunk
+    if cull:
+        warp = warp_of_pixel(*stats["tile"]).to(data.device)
+        n_px = warp.shape[0]
+        rows = torch.nn.functional.one_hot(
+            torch.arange(n_px, device=data.device) // 32).float()
+        patches = torch.nn.functional.one_hot(warp).float()
+        shift = torch.arange(patches.shape[1], device=data.device)
     for c in range(n_pad // CHUNK):
         on = flags[:, :, c].bool()                              # [R, T]
         if not bool(on.any()):
             continue
         off = ~on[..., None]
         stopped = torch.zeros_like(stopped)                     # re-arm
-        contribs, befores = [], []
+        contribs, befores, lives = [], [], []
         for i in range(c * CHUNK, (c + 1) * CHUNK):
             g = data[:, :9, i]                                  # [R, 9]
             col = g[:, :, None, None]
@@ -171,6 +238,8 @@ def _walk(data, flags, px, py, stats=None):
             if stats is not None:
                 contribs.append(contrib)
                 befores.append(stopped)
+            if cull:
+                lives.append(~skip)
             stopped = stopped | (~skip & ~ok)
             t_before = torch.exp(log_t)
             log_t = torch.where(contrib, incl, log_t)
@@ -185,6 +254,20 @@ def _walk(data, flags, px, py, stats=None):
             stats["hit"][..., c * CHUNK:(c + 1) * CHUNK] = \
                 hit.any(-1).permute(1, 2, 0)
             earlier = earlier | stopped
+            if cull:
+                walking = (~torch.stack(befores) & on[None, ..., None]
+                           ).float()                      # [512, R, T, P]
+                bits = stats["survivors"][..., c * CHUNK:(c + 1) * CHUNK
+                                          ].permute(2, 0, 1)  # [512, R, T]
+                kept = (bits[..., None] >> shift) & 1     # [512, R, T, w]
+                in_patch = (walking @ patches) > 0
+                stats["iters_rows"] += ((walking @ rows) > 0).sum()
+                stats["iters_patches"] += (in_patch & (kept == 1)).sum()
+                stats["groups"] += in_patch[::32].sum()
+                live = torch.stack(lives)
+                stats["live"] += live.sum()
+                stats["missed"] += (live & ((bits[..., None] >> warp) & 1
+                                            == 0)).sum()
 
 
 def stream_fwd_ref(data, flags, bg, img_h: int, img_w: int, tile_h: int,

@@ -3,8 +3,10 @@
 Port of unipre3d_tpu/training/video.py. The render half needs only torch:
 ``predict_example`` (the eval-mode gaussians of one example, from the EMA
 parameters), ``test_view_frames`` (every view of the example, render beside
-ground truth) and ``render_orbit`` (the reference's two-phase orbit), each
-view one ``render_predicted`` call, so through ``tpu.raster_impl``.
+ground truth) and ``render_orbit`` (the reference's two-phase orbit), both
+through ``render_views``: on the ``pallas`` route all views of a call in
+one streaming-splat launch, on the others one render a view
+(``render_predicted_views``).
 ``write_video`` imports ``imageio`` when it writes (mp4 when an ffmpeg
 backend imports, else GIF), so a machine without it still renders.
 """
@@ -19,7 +21,7 @@ import numpy as np
 import torch
 
 from unipre3d_tpu_torch.data import batch_to
-from unipre3d_tpu_torch.ops.rasterizer.render import render_predicted
+from unipre3d_tpu_torch.ops.rasterizer.render import render_predicted_views
 from unipre3d_tpu_torch.training.trainer import bg_color_of, predict
 from unipre3d_tpu_torch.utils import camera as cam_util
 
@@ -84,21 +86,21 @@ def to_uint8(img: np.ndarray) -> np.ndarray:
     return (np.moveaxis(img, -3, -1) * 255).astype(np.uint8)
 
 
-def _render_views(gaussians, cams, cfg, gaussian_mask) -> np.ndarray:
-    """One render_predicted call per camera -> [V, 3, H, W] on the CPU."""
+CAMERA_KEYS = ("world_view_transforms", "full_proj_transforms",
+               "camera_centers")
+
+
+def render_views(gaussians, cams, cfg, gaussian_mask) -> np.ndarray:
+    """Every camera of ``cams`` (numpy stacks [V, ...]) -> [V, 3, H, W] on
+    the CPU, through ``render_predicted_views`` (on the ``pallas`` route in
+    one streaming-splat launch)."""
     dev = gaussians["xyz"].device
-    bg = bg_color_of(cfg)
-    frames = []
     with torch.no_grad():
-        for i in range(len(cams["world_view_transforms"])):
-            wv, fp, cc = (torch.as_tensor(cams[k][i], device=dev)
-                          for k in ("world_view_transforms",
-                                    "full_proj_transforms",
-                                    "camera_centers"))
-            frames.append(render_predicted(
-                gaussians, wv, fp, cc, bg, cfg,
-                gaussian_mask=gaussian_mask)["render"])
-        return torch.stack(frames).cpu().numpy()
+        wv, fp, cc = (torch.as_tensor(cams[k], device=dev)
+                      for k in CAMERA_KEYS)
+        return render_predicted_views(
+            gaussians, wv, fp, cc, bg_color_of(cfg), cfg,
+            gaussian_mask=gaussian_mask).cpu().numpy()
 
 
 def render_orbit(gaussians: Dict[str, torch.Tensor], cfg,
@@ -107,7 +109,7 @@ def render_orbit(gaussians: Dict[str, torch.Tensor], cfg,
     """An orbit around ONE example's gaussian dict (no batch axis) ->
     frames [F, H, W, 3] uint8."""
     cams = orbit_camera_tensors(cfg, num_frames)
-    return to_uint8(_render_views(gaussians, cams, cfg, gaussian_mask))
+    return to_uint8(render_views(gaussians, cams, cfg, gaussian_mask))
 
 
 def predict_example(model, state, cfg, batch, use_ema: bool = True):
@@ -126,10 +128,8 @@ def predict_example(model, state, cfg, batch, use_ema: bool = True):
 def test_view_frames(gaussians, mask, cfg, batch) -> np.ndarray:
     """Every view of the first example of a numpy batch, its render beside
     its ground truth -> [V, H, 2W, 3] uint8."""
-    cams = {k: batch[k][0] for k in ("world_view_transforms",
-                                     "full_proj_transforms",
-                                     "camera_centers")}
-    rendered = _render_views(gaussians, cams, cfg, mask)
+    cams = {k: batch[k][0] for k in CAMERA_KEYS}
+    rendered = render_views(gaussians, cams, cfg, mask)
     pair = np.concatenate([np.clip(rendered, 0, 1),
                            np.clip(batch["gt_images"][0], 0, 1)], axis=3)
     return to_uint8(pair)
