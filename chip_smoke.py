@@ -25,16 +25,27 @@ Phases, all of them, in order; any failure exits non-zero:
    its per-warp cull; T and images bit for bit; the cull's plain twin must
    keep every pair the card's plain walk does not skip; the warp-column
    iterations of the first port's rows and of the culled patches).
-4. train: on synthetic data through ``unipre3d_tpu_torch.train_network``,
-   each under its own output directory: three full-width
+4. train: the default run (bfloat16 compute dtype, the VAE feature cache)
+   on synthetic data through ``unipre3d_tpu_torch.train_network``, each
+   under its own output directory: six full-width
    ``transformer_pretraining`` steps with their val loop, checkpoints and
-   test videos (``tpu.raster_impl=pallas``), then ``eval.main`` over that
-   run; three full-width ``sparseunet_pretraining`` steps on each of the
-   binned route and the ``auto`` route (the tiled renderer). Each path's
-   kernel launch counts are set to 0 just before it and read just after,
-   and every kernel of the path must have launched. No
-   scene step may have a non-finite gradient norm or be skipped by the NaN
-   skip.
+   test videos (``tpu.raster_impl=pallas``), with each step's time (the
+   cache's attach and the step), the cache's hit rate (which must be above
+   0: the synthetic set's 64 conditioning views repeat) and buffer, and the
+   peak device memory, then ``eval.main`` over that run; three full-width
+   ``sparseunet_pretraining`` steps on each of the binned route and the
+   ``auto`` route (the tiled renderer). Each path's kernel launch counts
+   are set to 0 just before it and read just after, and every kernel of
+   the path must have launched. No step may have a non-finite gradient
+   norm or be skipped by the NaN skip. Then, on one full-width object
+   batch from the same weights: the cached step's loss against the
+   live-VAE step's (bfloat16; 1e-6 relative, bit for bit on the CPU,
+   tests/test_torch_feature_cache.py), and the bfloat16 step's loss
+   against the float32 step's (2e-2 relative, as
+   tests/test_torch_compute_dtype.py, and at least 1e-4 apart). The
+   modules must compute in the dtype asked for: the first transformer,
+   SparseUNet and VAE blocks of each default run, and the first
+   transformer block of each of those steps, return it.
 5. test renders: the object orbit (80 frames) and the test views of a
    test example from the trained run's checkpoint, and the 16 test views of
    a full-width scene at 84,096 slots, through the streaming splat, each
@@ -54,7 +65,8 @@ It prints a ``{"kernels": [...]}`` line, then the card's name and power
 limit, then as its last line ``{"ok": true, "device": {...}}``. Without a
 CUDA device, or without the repository beside it, it exits non-zero and
 prints no result. TF32 is off for every phase (``allow_tf32 = False`` for
-matmuls and cuDNN), so the float32 comparisons are float32.
+matmuls and cuDNN), so the float32 comparisons are float32; the parity
+phases pin ``tpu.compute_dtype=float32`` and ``tpu.vae_cache_entries=0``.
 """
 
 from __future__ import annotations
@@ -863,8 +875,10 @@ def phase_stream_kernels(device):
 
 SCENE_ARGV = ["--config-name", "sparseunet_pretraining",
               "data.pts_dataset_root=synthetic", "opt.batch_size=1"]
+# the parity phases compare float32 computations, without the cache
+FLOAT32_PINS = ["tpu.compute_dtype=float32", "tpu.vae_cache_entries=0"]
 # the small scene of the parity phase (binned route, no tile is cut)
-SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + [
+SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + FLOAT32_PINS + [
     "tpu.raster_impl_train=pallas_binned",
     "data.training_width=32", "data.training_height=32",
     "data.input_images=2", "data.max_points=1024",
@@ -877,13 +891,50 @@ SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + [
 
 OBJECT_ARGV = ["--config-name", "transformer_pretraining",
                "data.dataset_root=synthetic"]
+OBJECT_STEPS = 6
+TOL_CACHED_LOSS = 1e-6   # cached vs live VAE step, relative
+TOL_BF16_LOSS = 2e-2     # bfloat16 vs float32 step, relative
+# the least the bfloat16 step must move the loss from the float32 one,
+# relative: a run that computes in float32 whatever its dtype moves it by
+# nothing (TF32 is off)
+TOL_BF16_MOVES = 1e-4
+
+
+def first_output_dtypes(kinds):
+    """Records the output dtype of the first call of a module of each
+    class in ``kinds`` ({label: class}) while it is open; a global forward
+    hook, removed once every class has been seen. Returns (hook handle,
+    {label: dtype})."""
+    import torch
+    seen = {}
+    handle = None
+
+    def hook(module, _, out):
+        for label, cls in kinds.items():
+            if label not in seen and isinstance(module, cls) and \
+                    torch.is_tensor(out):
+                seen[label] = out.dtype
+        if len(seen) == len(kinds):
+            handle.remove()
+
+    handle = torch.nn.modules.module.register_module_forward_hook(hook)
+    return handle, seen
+
+
+def hold_dtypes(label, seen, kinds, dtype):
+    """Every class of ``kinds`` must have returned ``dtype``."""
+    log(f"[train] {label}: first outputs' dtypes {seen}")
+    if set(seen) != set(kinds) or any(d != dtype for d in seen.values()):
+        raise AssertionError(f"{label}: modules {seen}, not all {dtype}")
 
 
 def run_train(argv, counters, device_line, label, steps=3):
     """``train_network.main(argv)`` with the launch counts of ``counters``
     ({name: CudaKernel}) set to 0 just before and read just after; every
     one must have launched, every loss must be finite, and no step may
-    have a non-finite gradient norm or be skipped by the NaN skip."""
+    have a non-finite gradient norm or be skipped by the NaN skip. Prints
+    each step's time (with the cache: its attach + the step) and the
+    cache's hit rate and buffer."""
     import torch
     from unipre3d_tpu_torch import train_network
     for k in counters.values():
@@ -897,8 +948,15 @@ def run_train(argv, counters, device_line, label, steps=3):
         f"grad_norm {result['grad_norms']}")
     log(f"[train] {label}: step ms {[round(t, 3) for t in result['step_ms']]}"
         f" (setup {result['setup_s']:.1f} s; peak device memory "
-        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB) on "
-        f"{device_line}")
+        f"{torch.cuda.max_memory_allocated() / 2**30:.2f} GiB; compute "
+        f"{result['compute_dtype']}) on {device_line}")
+    if "cache_ms" in result:
+        total = [a + b for a, b in zip(result["cache_ms"], result["step_ms"])]
+        log(f"[train] {label}: VAE cache attach ms "
+            f"{[round(t, 3) for t in result['cache_ms']]}, attach + step ms "
+            f"{[round(t, 3) for t in total]}; hit rate "
+            f"{result['hit_rate']:.4f} {result['cache_counts']}; buffer "
+            f"{result['cache_gib']:.3f} GiB")
     log(f"[train] {label}: val {result['val']}; launches {launches}")
     if len(losses) != steps or not all(math.isfinite(x) for x in losses):
         raise AssertionError(f"{label} train losses not finite: {losses}")
@@ -917,27 +975,43 @@ def run_train(argv, counters, device_line, label, steps=3):
 
 
 def phase_train(device_line, tmp):
-    """Three full-width object steps (dense splat) with their val loop,
-    checkpoints and test videos through the streaming splat, then
-    ``eval.main`` over the run; three full-width scene steps on each of the
-    binned and auto (tiled renderer) routes. Returns the launch counts of
-    each kernel's path (the dense and binned splats, the streaming
-    forward)."""
+    """The default run (bfloat16, the VAE feature cache): six full-width
+    object steps (dense splat) with their val loop, checkpoints and test
+    videos through the streaming splat, then ``eval.main`` over the run;
+    three full-width scene steps on each of the binned and auto (tiled
+    renderer) routes; then the default run's holds
+    (``default_run_holds``). Returns the launch counts of each kernel's
+    path (the dense and binned splats, the streaming forward)."""
     import torch
     from unipre3d_tpu_torch import eval as eval_cli
+    from unipre3d_tpu_torch.models import layers, sparseunet, vae
     from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
     from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
     from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
     obj_dir = os.path.join(tmp, "object")
+    # what the default run computes in, read off its modules on the card
+    kinds = {"transformer Block": layers.Block,
+             "VAE ResnetBlock2D": vae.ResnetBlock2D}
+    handle, dtypes = first_output_dtypes(kinds)
     result, launches = run_train(
-        OBJECT_ARGV + ["--output-dir", obj_dir, "opt.iterations=3",
-                       "logging.loss_log=1", "logging.val_log=3",
-                       "logging.loop_log=3", "tpu.raster_impl=pallas"],
+        OBJECT_ARGV + ["--output-dir", obj_dir,
+                       f"opt.iterations={OBJECT_STEPS}",
+                       "logging.loss_log=1", f"logging.val_log={OBJECT_STEPS}",
+                       f"logging.loop_log={OBJECT_STEPS}",
+                       "tpu.raster_impl=pallas"],
         {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
-         "stream_fwd": ss.STREAM_FWD}, device_line, "object")
-    for name in ("model_latest.ckpt", "model_best.ckpt"):
+         "stream_fwd": ss.STREAM_FWD}, device_line, "object",
+        steps=OBJECT_STEPS)
+    handle.remove()
+    hold_dtypes("object", dtypes, kinds, torch.bfloat16)
+    for name in ("model_latest.ckpt", "model_best.ckpt", "metrics.jsonl"):
         if not os.path.exists(os.path.join(obj_dir, name)):
             raise AssertionError(f"object run wrote no {name}")
+    if result["compute_dtype"] != "bfloat16" or \
+            not (result["hit_rate"] or 0) > 0:
+        raise AssertionError(f"object default run: compute "
+                             f"{result['compute_dtype']}, VAE cache hit rate "
+                             f"{result['hit_rate']}")
     log(f"[train] object: val ms {[round(v['ms'], 1) for v in result['val']]}"
         f"; test videos written {result['videos']}")
     sd.DENSE_FWD.launches = 0
@@ -960,11 +1034,16 @@ def phase_train(device_line, tmp):
             ("pallas_binned", {"binned_fwd": sb.BINNED_FWD,
                                "binned_bwd": sb.BINNED_BWD}),
             ("auto", {})):
+        kinds = {"SparseUNet BasicBlock": sparseunet.BasicBlock,
+                 "VAE ResnetBlock2D": vae.ResnetBlock2D}
+        handle, dtypes = first_output_dtypes(kinds)
         res, counts = run_train(
             SCENE_ARGV + ["--output-dir", os.path.join(tmp, f"scene_{route}"),
                           f"tpu.raster_impl_train={route}",
                           "opt.iterations=3", "logging.loss_log=1"],
             counters, device_line, f"scene {route}")
+        handle.remove()
+        hold_dtypes(f"scene {route}", dtypes, kinds, torch.bfloat16)
         scene[route] = counts
         log(f"[train] scene {route}: valid rows {res['valid_rows']}, "
             f"geometry ms {[round(t, 3) for t in res['geometry_ms']]}"
@@ -972,7 +1051,65 @@ def phase_train(device_line, tmp):
                f"the budget {res['budget_dropped']}, past the per-tile cap "
                f"{res['cap_dropped']}" if "dups" in res else ""))
     launches.update(scene["pallas_binned"])
+    default_run_holds(device_line)
     return launches
+
+
+def default_run_holds(device_line):
+    """One full-width object step from the same seed-0 weights on one
+    batch of distinct images (``random_batch``), three ways: bfloat16 with
+    the VAE live, bfloat16 with the features from the cache (every view a
+    miss, so the cache runs the VAE on the same images), and float32 with
+    the VAE live. The cached loss must equal the live one to
+    TOL_CACHED_LOSS, the bfloat16 loss the float32 one to TOL_BF16_LOSS,
+    and differ from it by TOL_BF16_MOVES at least; the first transformer
+    block of each model must return its compute dtype."""
+    import torch
+    from unipre3d_tpu_torch import train_network
+    from unipre3d_tpu_torch.data import batch_to, random_batch
+    from unipre3d_tpu_torch.training import trainer
+    from unipre3d_tpu_torch.training.config import load_config
+    cfg = load_config("transformer_pretraining", overrides=OBJECT_ARGV[2:])
+    n_in = int(cfg.data.input_images)
+    batch = random_batch(cfg, batch=int(cfg.opt.batch_size), n_points=1024,
+                         n_views=n_in + 4, seed=0)
+    losses = {}
+    for label, dtype, cached in (("bf16 live", torch.bfloat16, False),
+                                 ("bf16 cached", torch.bfloat16, True),
+                                 ("f32 live", torch.float32, False)):
+        model, state = trainer.create_train_state(cfg, device="cuda", seed=0,
+                                                  dtype=dtype)
+        b = batch_to(batch, "cuda")
+        if cached:
+            cache = train_network.make_cache(cfg, model, "cuda")
+            b["vae_features"] = cache.attach(batch, n_in)
+        seen = []
+        hook = model.point_network.encoder.block0.register_forward_hook(
+            lambda _, __, out: seen.append(out.dtype))
+        m = trainer.make_train_step(cfg, model)(state, b)
+        hook.remove()
+        if not math.isfinite(m["loss"]) or m["nan_skipped"]:
+            raise AssertionError(f"{label} step: {m}")
+        if not seen or set(seen) != {dtype}:
+            raise AssertionError(f"{label} step: block0 returned {seen}")
+        losses[label] = m["loss"]
+        del model, state, b
+        torch.cuda.empty_cache()
+    cached_err = abs(losses["bf16 cached"] - losses["bf16 live"]) \
+        / losses["bf16 live"]
+    bf16_err = abs(losses["bf16 live"] - losses["f32 live"]) \
+        / losses["f32 live"]
+    log(f"[train] default-run holds, full-width object step: losses "
+        f"{losses}; cached vs live {cached_err:.2e} (tol "
+        f"{TOL_CACHED_LOSS:g}), bf16 vs f32 {bf16_err:.2e} (tol "
+        f"{TOL_BF16_LOSS:g}, at least {TOL_BF16_MOVES:g}); block0 returned "
+        f"each model's compute dtype, on {device_line}")
+    if cached_err > TOL_CACHED_LOSS or bf16_err > TOL_BF16_LOSS:
+        raise AssertionError("default run: the cached or the bf16 step "
+                             "disagrees")
+    if bf16_err < TOL_BF16_MOVES:
+        raise AssertionError("default run: the bf16 step's loss is the "
+                             "float32 one's")
 
 
 def phase_test_renders(device_line, tmp):
@@ -1171,7 +1308,8 @@ def step_snapshot(cfg, batch, dev):
     Adam's first moment per trainable tensor, on the CPU)."""
     from unipre3d_tpu_torch.data import batch_to
     from unipre3d_tpu_torch.training import trainer
-    model, state = trainer.create_train_state(cfg, device=dev, seed=0)
+    model, state = trainer.create_train_state(
+        cfg, device=dev, seed=0, dtype=trainer.compute_dtype_of(cfg))
     metrics = trainer.make_train_step(cfg, model)(state, batch_to(batch, dev))
     names = [n for n, _ in trainer.split_frozen(model)[0]]
     return metrics, {n: m.cpu() for n, m in zip(names, state.optimizer.mu)}
@@ -1233,7 +1371,8 @@ def scene_snapshot(cfg, batch, dev):
     import torch
     from unipre3d_tpu_torch.data import batch_to
     from unipre3d_tpu_torch.training import trainer
-    model, _ = trainer.create_train_state(cfg, device=dev, seed=0)
+    model, _ = trainer.create_train_state(
+        cfg, device=dev, seed=0, dtype=trainer.compute_dtype_of(cfg))
     b = batch_to(batch, dev)
     b["geometry"] = trainer.make_geometry_fn(cfg, model)(b)
     model.train()
@@ -1300,7 +1439,7 @@ def phase_parity():
     from unipre3d_tpu_torch.data import (SyntheticSceneDataset, collate,
                                          random_batch)
     from unipre3d_tpu_torch.training.config import load_config
-    cfg = load_config("transformer_pretraining", overrides=[
+    cfg = load_config("transformer_pretraining", overrides=FLOAT32_PINS + [
         "data.training_resolution=32", "opt.batch_size=2",
         "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "
         "layers_per_block: 1}",
@@ -1401,7 +1540,7 @@ def phase_eval_parity():
     render_err = {}
     for impl in ("xla", "pallas"):
         cfg = load_config("transformer_pretraining",
-                          overrides=[f"tpu.raster_impl={impl}"])
+                          overrides=FLOAT32_PINS + [f"tpu.raster_impl={impl}"])
         imgs = []
         for dev in ("cpu", "cuda"):
             d = {k: torch.tensor(v, dtype=torch.float32, device=dev)
@@ -1414,7 +1553,7 @@ def phase_eval_parity():
         err = (imgs[0] - imgs[1]).abs().amax(0)
         render_err[impl] = (float(err.max()), int((err > TOL_IMAGE).sum()))
 
-    cfg = load_config("transformer_pretraining", overrides=[
+    cfg = load_config("transformer_pretraining", overrides=FLOAT32_PINS + [
         "data.training_resolution=32",
         "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "
         "layers_per_block: 1}",
@@ -1422,7 +1561,8 @@ def phase_eval_parity():
     batch = random_batch(cfg, batch=2, n_points=256, n_views=3, seed=3)
     evals = []
     for dev in ("cpu", "cuda"):
-        model, state = trainer.create_train_state(cfg, device=dev, seed=0)
+        model, state = trainer.create_train_state(
+            cfg, device=dev, seed=0, dtype=trainer.compute_dtype_of(cfg))
         for v in state.ema.values():      # an EMA away from the parameters
             v.mul_(1.01)
         evals.append(trainer.make_eval_step(cfg, model)(

@@ -244,7 +244,8 @@ def test_cli_trains_scene_on_cpu(tmp_path):
     res = train_network.main(
         ["--config-name", "sparseunet_pretraining", "--device", "cpu",
          "--output-dir", str(tmp_path), "opt.iterations=2",
-         "logging.loss_log=1",
+         "logging.loss_log=1", "tpu.compute_dtype=float32",
+         "tpu.vae_cache_entries=0",
          "tpu.raster_tile_capacity=1024"] + SCENE)
     assert len(res["losses"]) == 2
     assert all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])

@@ -217,6 +217,7 @@ def test_cli_trains_on_cpu(tmp_path):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
          "--output-dir", str(tmp_path), "opt.iterations=2",
-         "logging.loss_log=1"] + SMALL)
+         "logging.loss_log=1", "tpu.compute_dtype=float32",
+         "tpu.vae_cache_entries=0"] + SMALL)
     assert len(res["losses"]) == 2
     assert all(math.isfinite(x) for x in res["losses"] + res["psnrs"])

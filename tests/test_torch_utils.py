@@ -63,11 +63,12 @@ def test_config_matches_jax_except_tpu_block():
     over = ["opt.batch_size=4", "model.backbone_overrides={depth: 2}"]
     t = load_config("transformer_pretraining", overrides=over).to_plain()
     j = jax_load_config("transformer_pretraining", overrides=over).to_plain()
-    # the port's tpu block holds the renderer keys it reads, with the JAX
-    # package's values
+    # the port's tpu block holds the renderer, precision and feature-cache
+    # keys it reads, with the JAX package's values
     tt, jt = t.pop("tpu"), j.pop("tpu")
     assert tt == {"raster_impl": "xla", "raster_impl_train": "auto",
-                  "raster_tile_capacity": 1024}
+                  "raster_tile_capacity": 1024, "compute_dtype": "bfloat16",
+                  "param_dtype": "float32", "vae_cache_entries": 512}
     assert all(jt[k] == v for k, v in tt.items())
     assert t == j
     assert load_config("default_config").model.backbone_type == "transformer"

@@ -2,6 +2,7 @@
 """Profile one of the PyTorch port's pretraining steps on one CUDA card.
 
     python3 tools/profile_torch_step.py [--tf32] [--scene]
+                                        [--dtype bfloat16] [--cache]
 
 Without ``--scene``: ``transformer_pretraining`` at full width (random
 weights from seed 42) on a random batch of the real shapes (batch 32, 1024
@@ -15,7 +16,12 @@ the device time of the step's named ranges (``step/forward``,
 ``predictor/frozen_vae``, ``predictor/sparseunet``, ``step/render``,
 ``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
 time over wall time) and the top kernels by device time.
-TF32 is off unless ``--tf32`` (as in chip_smoke.py).
+TF32 is off unless ``--tf32`` (as in chip_smoke.py). The model computes in
+``--dtype`` (default float32); with ``--cache`` each step takes the
+conditioning views' VAE features from the feature cache
+(training/feature_cache.py), filled before the warm-up steps so that every
+timed step hits, and the profile covers each step's attach. The default
+run is ``--dtype bfloat16 --cache``.
 """
 
 from __future__ import annotations
@@ -36,6 +42,9 @@ def main():
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--tf32", action="store_true")
     ap.add_argument("--scene", action="store_true")
+    ap.add_argument("--dtype", default="float32",
+                    choices=("float32", "bfloat16"))
+    ap.add_argument("--cache", action="store_true")
     args = ap.parse_args()
 
     import torch
@@ -43,6 +52,7 @@ def main():
     from unipre3d_tpu_torch import resolve_device
     from unipre3d_tpu_torch.data import (SyntheticSceneDataset, batch_to,
                                          collate, random_batch)
+    from unipre3d_tpu_torch.train_network import make_cache
     from unipre3d_tpu_torch.training import trainer
     from unipre3d_tpu_torch.training.config import load_config
 
@@ -56,17 +66,27 @@ def main():
         cfg = load_config("sparseunet_pretraining", overrides=[
             "opt.batch_size=1", "data.pts_dataset_root=synthetic",
             "tpu.raster_impl_train=pallas_binned"])
-        batch = batch_to(collate([SyntheticSceneDataset(
-            cfg, num_scenes=1, seed=0, device=dev)[0]]), dev)
+        host = collate([SyntheticSceneDataset(cfg, num_scenes=1, seed=0,
+                                              device=dev)[0]])
     else:
         cfg = load_config("transformer_pretraining",
                           overrides=[f"opt.batch_size={BATCH}"])
-        batch = batch_to(random_batch(cfg, BATCH, n_points=1024, n_views=5,
-                                      seed=0), dev)
+        host = random_batch(cfg, BATCH, n_points=1024, n_views=5, seed=0)
+    batch = batch_to(host, dev)
     print(f"[profile] {smi}; {cfg.model.backbone_type} tf32={args.tf32} "
-          f"batch={cfg.opt.batch_size}", flush=True)
-    model, state = trainer.create_train_state(cfg, device=dev, seed=42)
-    step = trainer.make_train_step(cfg, model)
+          f"batch={cfg.opt.batch_size} compute={args.dtype} "
+          f"cache={args.cache}", flush=True)
+    model, state = trainer.create_train_state(
+        cfg, device=dev, seed=42, dtype=getattr(torch, args.dtype))
+    train_step = trainer.make_train_step(cfg, model)
+    cache = make_cache(cfg, model, dev) if args.cache else None
+    n_in = int(cfg.data.input_images)
+
+    def step(state, batch):
+        if cache is not None:
+            batch["vae_features"] = cache.attach(host, n_in)
+        return train_step(state, batch)
+
     geometry_fn = trainer.make_geometry_fn(cfg, model)
     geo_ms = []
     if geometry_fn is not None:

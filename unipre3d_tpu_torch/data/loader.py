@@ -1,20 +1,35 @@
-"""Batching: the collate part of unipre3d_tpu/data/loader.py.
+"""Batching with background prefetch: port of unipre3d_tpu/data/loader.py.
 
 Stacks numpy example dicts into batches in a seeded per-epoch order
 (``seed + epoch``) or in order, and moves a batch to a device as float32
-tensors (integer and boolean arrays keep their type). Nested dicts stack field by
-field: the scene schema's ``point_cloud`` dict (``coord``, ``grid_coord``,
-``feat``, ``mask``, ``min_coord``) becomes a dict of [B, ...] arrays beside
-``unprojected_coords`` [B, V, H, W, 4]. The JAX loader's host sharding and
-background prefetch are not ported.
+tensors (integer and boolean arrays keep their type). Nested dicts stack
+field by field: the scene schema's ``point_cloud`` dict (``coord``,
+``grid_coord``, ``feat``, ``mask``, ``min_coord``) becomes a dict of
+[B, ...] arrays beside ``unprojected_coords`` [B, V, H, W, 4].
+
+As in JAX, ``iter_from`` reads ahead on a background thread into a
+bounded queue of ``prefetch`` batches, each batch's examples read by a
+pool of ``num_workers`` threads; a resumed run skips the batches it has
+taken by their indices alone and then yields what an uninterrupted run
+would. A reader with random draws (``takes_draws``: the ShapeNet and
+ScanNet readers) reads each example with the draws of its (seed, epoch,
+position in the epoch) (data/draws.py), so a batch does not depend on
+which thread read which example; the JAX readers' global draws do. The
+synthetic datasets seed their own draws by index. Host sharding waits for
+the distributed port (ROADMAP.md queue A, item 17).
 """
 
 from __future__ import annotations
 
+import queue
+import threading
+from concurrent.futures import ThreadPoolExecutor
 from typing import Dict, Iterator
 
 import numpy as np
 import torch
+
+from unipre3d_tpu_torch.data.draws import example_draws
 
 
 def collate(examples) -> Dict[str, np.ndarray]:
@@ -45,34 +60,105 @@ class Loader:
     ``drop_last`` is False."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
-                 shuffle: bool = True, drop_last: bool = True):
+                 shuffle: bool = True, drop_last: bool = True,
+                 prefetch: int = 2, num_workers: int = 4):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
         self.shuffle = shuffle
         self.drop_last = drop_last
+        self.prefetch = max(1, prefetch)
+        self.num_workers = max(1, num_workers)
+        self._pool = None
 
     def batches_per_epoch(self) -> int:
         n, b = len(self.dataset), self.batch_size
         return n // b if self.drop_last else -(-n // b)
 
+    def _example(self, index: int, epoch: int, position: int):
+        if getattr(self.dataset, "takes_draws", False):
+            return self.dataset.get(
+                index, example_draws(self.seed, epoch, position))
+        return self.dataset[index]
+
+    def _fetch(self, epoch: int, idx: np.ndarray, b: int
+               ) -> Dict[str, np.ndarray]:
+        """Batch ``b`` of the epoch whose example order is ``idx``."""
+        first = b * self.batch_size
+        jobs = [(int(i), epoch, first + j) for j, i in
+                enumerate(idx[first:first + self.batch_size])]
+        if self.num_workers > 1 and len(jobs) > 1:
+            if self._pool is None:
+                self._pool = ThreadPoolExecutor(self.num_workers)
+            examples = list(self._pool.map(lambda a: self._example(*a), jobs))
+        else:
+            examples = [self._example(*a) for a in jobs]
+        return collate(examples)
+
+    def _order(self, epoch: int) -> np.ndarray:
+        n = len(self.dataset)
+        return np.random.default_rng(self.seed + epoch).permutation(n) \
+            if self.shuffle else np.arange(n)
+
     def epoch(self, epoch: int = 0, start: int = 0
               ) -> Iterator[Dict[str, np.ndarray]]:
-        """The epoch's batches from batch ``start`` on."""
-        n = len(self.dataset)
-        idx = np.random.default_rng(self.seed + epoch).permutation(n) \
-            if self.shuffle else np.arange(n)
+        """The epoch's batches from batch ``start`` on, read in the calling
+        thread (its examples by the pool)."""
+        idx = self._order(epoch)
         for b in range(start, self.batches_per_epoch()):
-            sel = idx[b * self.batch_size:(b + 1) * self.batch_size]
-            yield collate([self.dataset[int(i)] for i in sel])
+            yield self._fetch(epoch, idx, b)
 
     def iter_from(self, step: int = 0) -> Iterator[Dict[str, np.ndarray]]:
         """Infinite iterator over epochs, starting after the first ``step``
-        batches (a resumed run takes the batches it would have taken)."""
-        epoch, start = divmod(step, self.batches_per_epoch())
-        while True:
-            yield from self.epoch(epoch, start)
-            epoch, start = epoch + 1, 0
+        batches (skipped by index: a resumed run takes the batches it would
+        have taken), read ahead on a background thread. A reading error
+        is raised where the batch is taken; closing the iterator stops the
+        thread."""
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+        epoch0, start0 = divmod(step, max(1, self.batches_per_epoch()))
+
+        def put(item) -> bool:
+            while not stop.is_set():
+                try:
+                    q.put(item, timeout=0.1)
+                    return True
+                except queue.Full:
+                    continue
+            return False
+
+        def worker():
+            epoch, start = epoch0, start0
+            try:
+                if self.batches_per_epoch() == 0:
+                    raise ValueError(f"{len(self.dataset)} examples make no "
+                                     f"batch of {self.batch_size}")
+                while True:
+                    idx = self._order(epoch)
+                    for b in range(start, self.batches_per_epoch()):
+                        if not put(self._fetch(epoch, idx, b)):
+                            return
+                    epoch, start = epoch + 1, 0
+            except Exception as e:   # handed to the consumer
+                put(e)
+
+        thread = threading.Thread(target=worker, daemon=True)
+        thread.start()
+        try:
+            while True:
+                item = q.get()
+                if isinstance(item, Exception):
+                    raise item
+                yield item
+        finally:
+            stop.set()
 
     def __iter__(self):
         return self.iter_from(0)
+
+    def close(self) -> None:
+        """Stop the example-reading pool (a loader reads again after it,
+        with a new pool)."""
+        if self._pool is not None:
+            self._pool.shutdown()
+            self._pool = None

@@ -19,6 +19,15 @@ gradient. At scene level they run over the whole map (``ImageConv.forward``)
 and the PointFusion merge appends its pixels as extra voxels; the output
 dict then carries the validity ``mask`` of its padded rows.
 
+``dtype`` is the compute dtype of every module (flax semantics,
+models/layers.py), the parameters staying float32. The VAE features
+(live, or ``vae_features`` from the feature cache,
+training/feature_cache.py) are cast to it before the group normalisation;
+the object path casts the normalized map to it, the scene path applies the
+affine to the float32 map, as the JAX package does
+(gaussian_predictor.py:258-313). ``activate`` casts the 23 channels to
+float32, so the gaussians, the renderer and every kernel stay float32.
+
 The other object backbones are a later slice (ROADMAP.md, queue A).
 """
 
@@ -32,6 +41,7 @@ from torch import nn
 from torch.nn import functional as F
 from torch.profiler import record_function
 
+from unipre3d_tpu_torch.models.layers import F32, Dense
 from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
@@ -57,39 +67,45 @@ def group_normalize(x: torch.Tensor, num_groups: int,
 
 
 class GroupNormAffine(nn.Module):
-    """The trainable per-channel affine half of a GroupNorm."""
+    """The trainable per-channel affine half of a GroupNorm: float32, the
+    output in ``dtype``."""
 
-    def __init__(self, ch: int, num_groups: int = 32, epsilon: float = 1e-6):
+    def __init__(self, ch: int, num_groups: int = 32, epsilon: float = 1e-6,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.num_groups, self.epsilon = num_groups, epsilon
+        self.num_groups, self.epsilon, self.dtype = num_groups, epsilon, dtype
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
 
     def affine(self, xn):
         """Channel-last rows [..., ch] already normalized over the map."""
-        return xn.float() * self.weight + self.bias
+        return (xn.float() * self.weight + self.bias).to(self.dtype)
 
 
 class ImageConv(nn.Module):
     """GroupNorm + 1x1 conv over the frozen-VAE map; ``proj_rows`` applies
     its trainable part to gathered, pre-normalized rows."""
 
-    def __init__(self, out_dim: int, feat_ch: int = VAE_FIRST_BLOCK_CHANNELS):
+    def __init__(self, out_dim: int, feat_ch: int = VAE_FIRST_BLOCK_CHANNELS,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.layers_0 = GroupNormAffine(feat_ch)
+        self.dtype = dtype
+        self.layers_0 = GroupNormAffine(feat_ch, dtype=dtype)
         self.layers_1 = nn.Conv2d(feat_ch, out_dim, 1)
+
+    def _conv(self, y):
+        """The 1x1 conv over channel-last rows, in the compute dtype."""
+        w = self.layers_1.weight[:, :, 0, 0].to(self.dtype)
+        return F.linear(y, w, self.layers_1.bias.to(self.dtype))
 
     def forward(self, xn):
         """Pre-normalized map [B, feat_ch, H, W] -> [B, out_dim, H, W]."""
         y = self.layers_0.affine(xn.permute(0, 2, 3, 1))
-        w = self.layers_1.weight[:, :, 0, 0]
-        return F.linear(y, w, self.layers_1.bias).permute(0, 3, 1, 2)
+        return self._conv(y).permute(0, 3, 1, 2)
 
     def proj_rows(self, xn_rows):
         """Pre-normalized rows [B, N, feat_ch] -> [B, N, out_dim]."""
-        y = self.layers_0.affine(xn_rows)
-        w = self.layers_1.weight[:, :, 0, 0]
-        return F.linear(y, w, self.layers_1.bias)
+        return self._conv(self.layers_0.affine(xn_rows))
 
 
 def split_dimensions(max_sh_degree: int):
@@ -102,10 +118,11 @@ def split_dimensions(max_sh_degree: int):
 class FinalHead(nn.Module):
     """Per-token Gaussian parameter head: Linear -> ReLU -> Linear."""
 
-    def __init__(self, dim: int, hidden: int, out: int = 23):
+    def __init__(self, dim: int, hidden: int, out: int = 23,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = Dense(dim, hidden, dtype=dtype)
+        self.fc2 = Dense(hidden, out, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(F.relu(self.fc1(x)))
@@ -116,18 +133,18 @@ class PointFeaturePredictor(nn.Module):
     the backbone constructor (used to cut depth for small runs)."""
 
     def __init__(self, backbone_type: str, in_channels: int = 3,
-                 backbone_overrides=None):
+                 backbone_overrides=None, dtype: torch.dtype = F32):
         super().__init__()
         if backbone_type == "transformer":
             kw = dict(in_channels=in_channels, num_groups=128,
                       encoder_dims=384, depth=16)
             kw.update(backbone_overrides or {})
-            self.encoder = PointTransformerEncoder(**kw)
-            self.final = FinalHead(384, 128)
+            self.encoder = PointTransformerEncoder(**kw, dtype=dtype)
+            self.final = FinalHead(384, 128, dtype=dtype)
         elif backbone_type == "sparseunet":
             self.encoder = SpUNet(in_channels=6, num_classes=64,
-                                  **(backbone_overrides or {}))
-            self.final = FinalHead(64, 32)
+                                  **(backbone_overrides or {}), dtype=dtype)
+            self.final = FinalHead(64, 32, dtype=dtype)
         else:
             raise NotImplementedError(
                 f"backbone {backbone_type!r} is not ported yet (ROADMAP.md "
@@ -152,9 +169,9 @@ class PointFeaturePredictor(nn.Module):
 class FusionMlp(nn.Module):
     """Linear -> ReLU over [tokens || image features] (flax name layers_0)."""
 
-    def __init__(self, cin: int, cout: int):
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = F32):
         super().__init__()
-        self.layers_0 = nn.Linear(cin, cout)
+        self.layers_0 = Dense(cin, cout, dtype=dtype)
 
     def forward(self, x):
         return F.relu(self.layers_0(x))
@@ -170,11 +187,11 @@ class GaussianSplatPredictor(nn.Module):
                  offset_scale: float = 1.0, use_fusion: bool = True,
                  level: str = "object", fov: float = 49.13434264120263,
                  training_resolution: int = 128, backbone_overrides=None,
-                 vae_overrides=None):
+                 vae_overrides=None, dtype: torch.dtype = F32):
         super().__init__()
         if level not in ("object", "scene"):
             raise ValueError(f"unknown level {level!r}")
-        self.level = level
+        self.level, self.dtype = level, dtype
         self.max_sh_degree = max_sh_degree
         self.isotropic = isotropic
         self.offset_scale = offset_scale
@@ -182,48 +199,68 @@ class GaussianSplatPredictor(nn.Module):
         self.split_dims = split_dimensions(max_sh_degree)
         mc = MODEL_CONFIGS.get(backbone_type)
         self.point_network = PointFeaturePredictor(
-            backbone_type, in_channels, backbone_overrides=backbone_overrides)
+            backbone_type, in_channels, backbone_overrides=backbone_overrides,
+            dtype=dtype)
         if use_fusion:
             vo = dict(vae_overrides or {})
-            self.image_network = AutoencoderKL(**vo)
+            self.image_network = AutoencoderKL(**vo, dtype=dtype)
             self.image_network.requires_grad_(False)
             feat_ch = tuple(vo.get("block_out_channels",
                                    (VAE_FIRST_BLOCK_CHANNELS,)))[0]
             if level == "object":
-                self.image_conv = ImageConv(mc["feature_dim"], feat_ch=feat_ch)
+                self.image_conv = ImageConv(mc["feature_dim"], feat_ch=feat_ch,
+                                            dtype=dtype)
                 self.fusion_mlps = FusionMlp(mc["feature_dim"] * 2,
-                                             mc["fusion_dim"])
+                                             mc["fusion_dim"], dtype)
             else:
-                self.image_conv = ImageConv(mc["fusion_dim"], feat_ch=feat_ch)
+                self.image_conv = ImageConv(mc["fusion_dim"], feat_ch=feat_ch,
+                                            dtype=dtype)
                 self.fusion_mlps = SubMConvBlock(mc["fusion_dim"],
-                                                 mc["fusion_dim"])
+                                                 mc["fusion_dim"], dtype)
         self.register_buffer("intrinsic", torch.from_numpy(np.asarray(
             intrinsics_from_fov(fov, training_resolution))), persistent=False)
 
-    def raw_normalized_features(self, image):
-        """Frozen VAE ``decoder_block_3``, group-normalized over the map,
-        no gradient: image [N, 3, H, W] -> [N, feat_ch, H, W]."""
+    def extract_vae_features(self, image):
+        """The frozen VAE's raw ``decoder_block_3`` map, no gradient, in
+        the compute dtype: image [N, 3, H, W] -> [N, feat_ch, H, W] (what
+        the feature cache stores)."""
         with torch.no_grad():
-            feat = self.image_network(image)["decoder_block_3"]
+            return self.image_network(image)["decoder_block_3"]
+
+    def raw_normalized_features(self, image, vae_features=None):
+        """VAE ``decoder_block_3`` (live from ``image`` [N, 3, H, W], or
+        the cached ``vae_features`` [N, feat_ch, H, W] cast to the compute
+        dtype), group-normalized over the map in float32, no gradient ->
+        [N, feat_ch, H, W] float32."""
+        with torch.no_grad():
+            feat = self.extract_vae_features(image) if vae_features is None \
+                else vae_features.to(self.dtype)
             gn = self.image_conv.layers_0
             return group_normalize(feat, gn.num_groups, gn.epsilon)
 
+    @staticmethod
+    def _flat_views(t):
+        return None if t is None else t.reshape(-1, *t.shape[2:])
+
     def forward(self, point_cloud, image=None, c2w=None, generator=None,
-                unprojected_coords=None, geometry=None):
+                unprojected_coords=None, geometry=None, vae_features=None):
         """Object: point_cloud [B, N, 3(+)], image [B, V, 3, H, W]
         (conditioning views), c2w [B, V, 4, 4] -> dict of [B, V*G, ...]
         Gaussians. Scene: point_cloud the dict of the scene batch, image,
         unprojected_coords [B, V, H, W, 4] and ``geometry`` (the batch's
         precomputed SpUNetGeometry; None builds it) -> dict of [B, M', ...]
-        with ``mask``."""
+        with ``mask``. ``vae_features`` [B, V, feat_ch, H, W] (the feature
+        cache's) stand in for the VAE run on ``image``."""
         if self.level == "scene":
             return self._forward_scene(point_cloud, image,
-                                       unprojected_coords, geometry)
+                                       unprojected_coords, geometry,
+                                       vae_features)
         if self.use_fusion:
             B, V = image.shape[:2]
             with record_function("predictor/frozen_vae"):
                 feats = self.raw_normalized_features(
-                    image.reshape(B * V, *image.shape[2:]))
+                    self._flat_views(image),
+                    self._flat_views(vae_features)).to(self.dtype)
             if V > 1:
                 # multi-view union: the backbone runs once per view
                 point_cloud = point_cloud.repeat_interleave(V, dim=0)
@@ -241,13 +278,13 @@ class GaussianSplatPredictor(nn.Module):
                  for k, v in d.items()}
         return d
 
-    def _forward_scene(self, point_cloud, image, unprojected, geometry):
+    def _forward_scene(self, point_cloud, image, unprojected, geometry,
+                       vae_features=None):
         feats = None
         if self.use_fusion:
-            B, V = image.shape[:2]
             with record_function("predictor/frozen_vae"):
                 xn = self.raw_normalized_features(
-                    image.reshape(B * V, *image.shape[2:]))
+                    self._flat_views(image), self._flat_views(vae_features))
             feats = self.image_conv(xn)
         with record_function("predictor/sparseunet"):
             out, coords, mask = self.point_network.forward_scene(
@@ -281,8 +318,8 @@ class GaussianSplatPredictor(nn.Module):
         return d
 
 
-def build_predictor(cfg) -> GaussianSplatPredictor:
-    """Construct from a composed config."""
+def build_predictor(cfg, dtype: torch.dtype = F32) -> GaussianSplatPredictor:
+    """Construct from a composed config, computing in ``dtype``."""
     res = (int(cfg.data.training_resolution)
            if "training_resolution" in cfg.data else
            int(cfg.data.training_height))
@@ -298,4 +335,5 @@ def build_predictor(cfg) -> GaussianSplatPredictor:
         training_resolution=res,
         backbone_overrides=dict(cfg.model.get("backbone_overrides") or {}),
         vae_overrides=dict(cfg.model.get("vae_overrides") or {}),
+        dtype=dtype,
     )

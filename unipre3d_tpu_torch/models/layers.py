@@ -3,13 +3,23 @@
 Port of unipre3d_tpu/models/layers.py: ``Mlp``, ``Attention``, ``DropPath``,
 ``Block`` (pre-LN) and ``PointGroupEncoder`` (mini-PointNet). Module and
 attribute names follow the flax parameter paths so that weights convert by
-rule (unipre3d_tpu_torch/weights.py). Two flax conventions are kept:
+rule (unipre3d_tpu_torch/weights.py). Three flax conventions are kept:
 
 * LayerNorm eps is 1e-6 (torch's default is 1e-5);
 * BatchNorm (``FlaxBatchNorm``) normalizes by the biased batch variance and
   updates its running stats with flax momentum 0.99 and the *biased*
   variance (torch's ``BatchNorm`` would use momentum 0.01 and the unbiased
-  one).
+  one);
+* every module takes a compute ``dtype`` with flax's semantics, the
+  parameters staying float32: ``Dense`` casts its input, weight and bias
+  to ``dtype`` and returns ``dtype``; ``LayerNorm`` and ``FlaxBatchNorm``
+  compute their statistics and affine in float32 and return ``dtype``
+  (BatchNorm's running stats stay float32); attention takes its products
+  in ``dtype`` and its softmax in float32. The residual stream is then in
+  ``dtype``. ``torch.autocast`` would not give these dtypes: its policy
+  returns float32 from ``layer_norm`` and ``softmax``. At float32 every
+  cast is the identity and the modules compute what ``nn.Linear`` and
+  ``nn.LayerNorm`` do.
 """
 
 from __future__ import annotations
@@ -19,29 +29,63 @@ from torch import nn
 from torch.nn import functional as F
 
 LN_EPS = 1e-6
+F32 = torch.float32
+
+
+def maybe_cast(t, dtype):
+    return None if t is None else t.to(dtype)
+
+
+class Dense(nn.Linear):
+    """flax ``nn.Dense(dtype=)``: input, weight and bias cast to ``dtype``
+    (the compute dtype, not the parameters' own, which stay float32; their
+    gradients come back float32), the product and the output in it."""
+
+    def __init__(self, cin: int, cout: int, bias: bool = True,
+                 dtype: torch.dtype = F32):
+        super().__init__(cin, cout, bias=bias)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.linear(x.to(self.dtype), self.weight.to(self.dtype),
+                        maybe_cast(self.bias, self.dtype))
+
+
+class LayerNorm(nn.LayerNorm):
+    """flax ``nn.LayerNorm(dtype=)``, eps 1e-6: statistics and affine in
+    float32, the output in ``dtype``."""
+
+    def __init__(self, dim: int, dtype: torch.dtype = F32):
+        super().__init__(dim, eps=LN_EPS)
+        self.dtype = dtype
+
+    def forward(self, x):
+        return F.layer_norm(x.float(), self.normalized_shape, self.weight,
+                            self.bias, self.eps).to(self.dtype)
 
 
 class Mlp(nn.Module):
     """Linear -> GELU (exact) -> Linear."""
 
-    def __init__(self, dim: int, hidden: int, out: int):
+    def __init__(self, dim: int, hidden: int, out: int,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.fc1 = nn.Linear(dim, hidden)
-        self.fc2 = nn.Linear(hidden, out)
+        self.fc1 = Dense(dim, hidden, dtype=dtype)
+        self.fc2 = Dense(hidden, out, dtype=dtype)
 
     def forward(self, x):
         return self.fc2(F.gelu(self.fc1(x)))
 
 
 class Attention(nn.Module):
-    """Multi-head self-attention, qkv without bias; plain matmul + softmax
-    in float32, as the JAX version."""
+    """Multi-head self-attention, qkv without bias; the products in the
+    compute dtype, the softmax in float32, as the JAX version."""
 
-    def __init__(self, dim: int, num_heads: int):
+    def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = F32):
         super().__init__()
         self.num_heads = num_heads
-        self.qkv = nn.Linear(dim, dim * 3, bias=False)
-        self.proj = nn.Linear(dim, dim)
+        self.qkv = Dense(dim, dim * 3, bias=False, dtype=dtype)
+        self.proj = Dense(dim, dim, dtype=dtype)
 
     def forward(self, x):
         B, N, C = x.shape
@@ -69,13 +113,13 @@ class Block(nn.Module):
     """Pre-LN transformer block."""
 
     def __init__(self, dim: int, num_heads: int, mlp_ratio: float = 4.0,
-                 drop_path: float = 0.0):
+                 drop_path: float = 0.0, dtype: torch.dtype = F32):
         super().__init__()
         self.drop_path = drop_path
-        self.norm1 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.attn = Attention(dim, num_heads)
-        self.norm2 = nn.LayerNorm(dim, eps=LN_EPS)
-        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim)
+        self.norm1 = LayerNorm(dim, dtype)
+        self.attn = Attention(dim, num_heads, dtype)
+        self.norm2 = LayerNorm(dim, dtype)
+        self.mlp = Mlp(dim, int(dim * mlp_ratio), dim, dtype)
 
     def forward(self, x, generator=None):
         x = x + drop_path(self.attn(self.norm1(x)), self.drop_path,
@@ -88,11 +132,13 @@ class FlaxBatchNorm(nn.Module):
     """BatchNorm over every axis but the last, with flax semantics: batch
     stats from E[x^2] - E[x]^2 (clamped at 0), eps 1e-5, and running
     stats ``ra = 0.99 ra + 0.01 batch`` with the biased variance. In eval
-    mode it normalizes by the running stats."""
+    mode it normalizes by the running stats. Statistics, running stats and
+    affine are float32; the output is in ``dtype``."""
 
-    def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5):
+    def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.momentum, self.eps = momentum, eps
+        self.momentum, self.eps, self.dtype = momentum, eps, dtype
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -109,26 +155,27 @@ class FlaxBatchNorm(nn.Module):
                 self.running_var.mul_(m).add_((1.0 - m) * var.detach())
         else:
             mean, var = self.running_mean, self.running_var
-        return (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
+        y = (x - mean) * (torch.rsqrt(var + self.eps) * self.weight) \
             + self.bias
+        return y.to(self.dtype)
 
 
 class PointGroupEncoder(nn.Module):
     """Mini-PointNet over local groups: [B, G, K, 3] -> [B, G, C]."""
 
-    def __init__(self, encoder_channel: int):
+    def __init__(self, encoder_channel: int, dtype: torch.dtype = F32):
         super().__init__()
-        self.encoder_channel = encoder_channel
-        self.conv1 = nn.Linear(3, 128)
-        self.bn1 = FlaxBatchNorm(128)
-        self.conv2 = nn.Linear(128, 256)
-        self.conv3 = nn.Linear(512, 512)
-        self.bn2 = FlaxBatchNorm(512)
-        self.conv4 = nn.Linear(512, encoder_channel)
+        self.encoder_channel, self.dtype = encoder_channel, dtype
+        self.conv1 = Dense(3, 128, dtype=dtype)
+        self.bn1 = FlaxBatchNorm(128, dtype=dtype)
+        self.conv2 = Dense(128, 256, dtype=dtype)
+        self.conv3 = Dense(512, 512, dtype=dtype)
+        self.bn2 = FlaxBatchNorm(512, dtype=dtype)
+        self.conv4 = Dense(512, encoder_channel, dtype=dtype)
 
     def forward(self, point_groups):
         B, G, K, _ = point_groups.shape
-        x = point_groups.reshape(B * G, K, 3)
+        x = point_groups.reshape(B * G, K, 3).to(self.dtype)
         x = F.relu(self.bn1(self.conv1(x)))
         x = self.conv2(x)
         g = x.amax(dim=1, keepdim=True)

@@ -12,6 +12,14 @@ scene_geometry.SpUNetGeometry`. BatchNorm statistics run over the valid
 rows of the whole batch. Module and parameter names follow the flax tree
 (``conv_input``, ``enc{s}_block{i}``, ``down{s}``, ...) so that
 ``weights.jax_to_state_dict`` maps it across.
+
+``dtype`` is the compute dtype (unipre3d_tpu/models/sparseunet.py:39-163):
+the conv kernels are cast to it before each sparse conv (float32
+accumulation inside the product, the result in ``dtype``), linear layers
+cast as flax's ``Dense``, and ``MaskedBatchNorm`` computes its statistics,
+running stats and affine in float32 and returns ``dtype``. A conv bias is
+float32 and, as in JAX, promotes the biased conv's output to float32
+(the BatchNorm after it casts back).
 """
 
 from __future__ import annotations
@@ -22,6 +30,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from unipre3d_tpu_torch.models.layers import F32, Dense
 from unipre3d_tpu_torch.models.scene_geometry import build_spunet_geometry
 from unipre3d_tpu_torch.ops import sparse as sp
 
@@ -31,11 +40,13 @@ class MaskedBatchNorm(nn.Module):
     reference's torch settings (eps 1e-3, momentum 0.01: running =
     0.99 running + 0.01 batch). Batch statistics are the masked mean and
     the masked BIASED variance, and the running variance is updated with
-    the biased one too; ``torch.nn.BatchNorm1d`` does neither."""
+    the biased one too; ``torch.nn.BatchNorm1d`` does neither. Float32
+    throughout; the output is in ``dtype``."""
 
-    def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.01):
+    def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.01,
+                 dtype: torch.dtype = F32):
         super().__init__()
-        self.eps, self.momentum = eps, momentum
+        self.eps, self.momentum, self.dtype = eps, momentum, dtype
         self.weight = nn.Parameter(torch.ones(ch))
         self.bias = nn.Parameter(torch.zeros(ch))
         self.register_buffer("running_mean", torch.zeros(ch))
@@ -57,19 +68,25 @@ class MaskedBatchNorm(nn.Module):
         else:
             mean, var = self.running_mean, self.running_var
         y = (x.float() - mean) * torch.rsqrt(var + self.eps)
-        y = y * self.weight + self.bias
-        return torch.where(mask[..., None], y, torch.zeros((), device=y.device))
+        y = (y * self.weight + self.bias).to(self.dtype)
+        return torch.where(mask[..., None], y,
+                           torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 class SparseKernel(nn.Module):
     """Holder of a sparse-conv kernel ``weight`` [K, Cin, Cout], initialised
     truncated-normal(0.02) within 2 sigma (``reset_parameters``; the
-    trainer calls it with its seeded generator)."""
+    trainer calls it with its seeded generator); ``kernel()`` is the weight
+    in the compute dtype."""
 
-    def __init__(self, k: int, cin: int, cout: int):
+    def __init__(self, k: int, cin: int, cout: int, dtype: torch.dtype = F32):
         super().__init__()
+        self.dtype = dtype
         self.weight = nn.Parameter(torch.empty(k, cin, cout))
         self.reset_parameters()
+
+    def kernel(self) -> torch.Tensor:
+        return self.weight.to(self.dtype)
 
     def reset_parameters(self, generator=None):
         with torch.no_grad():
@@ -83,22 +100,22 @@ class SubMConv(SparseKernel):
     [B, M, K] -> [B, M, Cout] (+ bias)."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 use_bias: bool = False):
-        super().__init__(kernel_size ** 3, cin, cout)
+                 use_bias: bool = False, dtype: torch.dtype = F32):
+        super().__init__(kernel_size ** 3, cin, cout, dtype)
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, feats, nbr):
-        y = sp.subm_gather_matmul(feats, nbr, self.weight)
+        y = sp.subm_gather_matmul(feats, nbr, self.kernel())
         return y if self.bias is None else y + self.bias
 
 
 class SubMConvBlock(nn.Module):
     """SubMConv(k3, bias) + BN + ReLU: the scene ``fusion_mlps``."""
 
-    def __init__(self, cin: int, channels: int):
+    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32):
         super().__init__()
-        self.conv = SubMConv(cin, channels, 3, use_bias=True)
-        self.bn = MaskedBatchNorm(channels)
+        self.conv = SubMConv(cin, channels, 3, use_bias=True, dtype=dtype)
+        self.bn = MaskedBatchNorm(channels, dtype=dtype)
 
     def forward(self, feats, nbr, mask):
         return F.relu(self.bn(self.conv(feats, nbr), mask))
@@ -108,15 +125,15 @@ class BasicBlock(nn.Module):
     """[conv3-bn-relu-conv3-bn] + x (or a bias-free projection + BN when
     the width changes), then ReLU."""
 
-    def __init__(self, cin: int, channels: int):
+    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32):
         super().__init__()
-        self.conv1 = SubMConv(cin, channels)
-        self.bn1 = MaskedBatchNorm(channels)
-        self.conv2 = SubMConv(channels, channels)
-        self.bn2 = MaskedBatchNorm(channels)
+        self.conv1 = SubMConv(cin, channels, dtype=dtype)
+        self.bn1 = MaskedBatchNorm(channels, dtype=dtype)
+        self.conv2 = SubMConv(channels, channels, dtype=dtype)
+        self.bn2 = MaskedBatchNorm(channels, dtype=dtype)
         if cin != channels:
-            self.proj = nn.Linear(cin, channels, bias=False)
-            self.proj_bn = MaskedBatchNorm(channels)
+            self.proj = Dense(cin, channels, bias=False, dtype=dtype)
+            self.proj_bn = MaskedBatchNorm(channels, dtype=dtype)
         else:
             self.proj = None
 
@@ -131,42 +148,44 @@ class BasicBlock(nn.Module):
 class DownConv(SparseKernel):
     """SparseConv3d(k2, s2) + BN + ReLU over a batched DownStructure."""
 
-    def __init__(self, cin: int, cout: int):
-        super().__init__(8, cin, cout)
-        self.bn = MaskedBatchNorm(cout)
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = F32):
+        super().__init__(8, cin, cout, dtype)
+        self.bn = MaskedBatchNorm(cout, dtype=dtype)
 
     def forward(self, feats, ds):
-        return F.relu(self.bn(sp.downsample_apply(ds, feats, self.weight),
+        return F.relu(self.bn(sp.downsample_apply(ds, feats, self.kernel()),
                               ds.mask))
 
 
 class UpConv(SparseKernel):
     """SparseInverseConv3d(k2) + BN + ReLU."""
 
-    def __init__(self, cin: int, cout: int):
-        super().__init__(8, cin, cout)
-        self.bn = MaskedBatchNorm(cout)
+    def __init__(self, cin: int, cout: int, dtype: torch.dtype = F32):
+        super().__init__(8, cin, cout, dtype)
+        self.bn = MaskedBatchNorm(cout, dtype=dtype)
 
     def forward(self, parent_idx, child_offset, coarse_feats, fine_mask):
         f = sp.inverse_conv(parent_idx, child_offset, coarse_feats, fine_mask,
-                            self.weight)
+                            self.kernel())
         return F.relu(self.bn(f, fine_mask))
 
 
 def point_fusion_merge(x, image_features, geometry):
     """Scene PointFusion, feature part: append each fused pixel voxel's
-    representative 2D feature to the stem output and apply the merge
-    permutation. x [B, M, C], image_features [B*V, C, H, W] -> [B, M+P, C].
+    representative 2D feature (in ``x``'s dtype) to the stem output and
+    apply the merge permutation. x [B, M, C], image_features
+    [B*V, C, H, W] -> [B, M+P, C].
     (The geometry part, voxelize + bbox filter + merge, is in
     models/scene_geometry.py.)"""
     B, _, C = x.shape
-    pf = image_features.reshape(B, -1, C, *image_features.shape[2:])
+    pf = image_features.to(x.dtype).reshape(B, -1, C,
+                                            *image_features.shape[2:])
     pf = pf.permute(0, 1, 3, 4, 2).reshape(B, -1, C)
     pix_rep = geometry.pix_rep
     pix = torch.gather(pf, 1, pix_rep.clamp(min=0)[..., None].expand(
         -1, -1, C))
     pix = torch.where((pix_rep >= 0)[..., None], pix,
-                      torch.zeros((), device=pix.device))
+                      torch.zeros((), dtype=pix.dtype, device=pix.device))
     cat = torch.cat([x, pix], dim=1)
     return torch.gather(cat, 1, geometry.merge_order[..., None].expand(
         -1, -1, C))
@@ -182,7 +201,7 @@ class SpUNet(nn.Module):
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
                  grid_size: float = 0.02, pixel_capacity: int = 4096,
                  level_capacity_div: Sequence[int] = (3, 9, 27, 81),
-                 conv_impl: str = "gather"):
+                 conv_impl: str = "gather", dtype: torch.dtype = F32):
         super().__init__()
         if conv_impl != "gather":
             raise NotImplementedError(
@@ -192,17 +211,17 @@ class SpUNet(nn.Module):
         self.grid_size, self.pixel_capacity = grid_size, pixel_capacity
         self.level_capacity_div = tuple(level_capacity_div)
         n_stages = len(self.layers) // 2
-        self.n_stages = n_stages
+        self.n_stages, self.dtype = n_stages, dtype
 
-        self.conv_input = SubMConv(in_channels, base_channels, 5)
-        self.bn_input = MaskedBatchNorm(base_channels)
+        self.conv_input = SubMConv(in_channels, base_channels, 5, dtype=dtype)
+        self.bn_input = MaskedBatchNorm(base_channels, dtype=dtype)
         enc_ch = [base_channels]
         c = base_channels
         for s in range(n_stages):
-            self.add_module(f"down{s}", DownConv(c, self.channels[s]))
+            self.add_module(f"down{s}", DownConv(c, self.channels[s], dtype))
             c = self.channels[s]
             for i in range(self.layers[s]):
-                self.add_module(f"enc{s}_block{i}", BasicBlock(c, c))
+                self.add_module(f"enc{s}_block{i}", BasicBlock(c, c, dtype))
             enc_ch.append(c)
         # decoder widths (reference :230-276): start at channels[-1], then
         # channels[len - s - 2]
@@ -212,13 +231,13 @@ class SpUNet(nn.Module):
             dc = self.channels[len(self.channels) - s - 2]
         c = enc_ch[-1]
         for s in reversed(range(n_stages)):
-            self.add_module(f"up{s}", UpConv(c, self.ref_dec[s]))
+            self.add_module(f"up{s}", UpConv(c, self.ref_dec[s], dtype))
             c = self.ref_dec[s] + enc_ch[s]
             for i in range(self.layers[len(self.channels) - s - 1]):
                 self.add_module(f"dec{s}_block{i}",
-                                BasicBlock(c, self.ref_dec[s]))
+                                BasicBlock(c, self.ref_dec[s], dtype))
                 c = self.ref_dec[s]
-        self.final = nn.Linear(c, num_classes)
+        self.final = Dense(c, num_classes, dtype=dtype)
 
     def build_geometry(self, data, unprojected, use_fusion: bool):
         """The batch's index structures (models/scene_geometry.py)."""
@@ -243,8 +262,9 @@ class SpUNet(nn.Module):
             geometry = self.build_geometry(data, unprojected,
                                            fusion_mlp is not None)
         g = geometry
-        feats = torch.gather(data["feat"].float(), 1, g.order0[..., None]
-                             .expand(-1, -1, data["feat"].shape[-1]))
+        feats = torch.gather(data["feat"].to(self.dtype), 1,
+                             g.order0[..., None].expand(
+                                 -1, -1, data["feat"].shape[-1]))
         x = F.relu(self.bn_input(self.conv_input(feats, g.nbr5), g.mask0))
         if fusion_mlp is not None:
             x = point_fusion_merge(x, image_features, g)
@@ -271,5 +291,5 @@ class SpUNet(nn.Module):
                                                       masks[s])
         f = self.final(f)
         f = torch.where(g.fine_mask[..., None], f,
-                        torch.zeros((), device=f.device))
+                        torch.zeros((), dtype=f.dtype, device=f.device))
         return f, g.world, g.fine_mask

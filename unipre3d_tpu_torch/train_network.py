@@ -11,15 +11,28 @@ config tree (the port's own copy under ``unipre3d_tpu_torch/configs``),
 writes it to ``<output dir>/.hydra/config.yaml`` (default
 ``experiments_out/<date>/<time>``), resumes from ``model_latest.ckpt`` there
 if it exists, and runs the train steps up to ``opt.iterations`` on one
-device (the CUDA card unless ``--device`` names another). Every
-``logging.loss_log`` steps it logs loss, PSNR and the gradient norm; every
-``logging.val_log`` steps and at the last it scores the ``val`` split with
-the eval step (novel-view PSNR and SSIM) and writes ``model_latest.ckpt``,
-and ``model_best.ckpt`` when the novel PSNR is the best yet; every
-``logging.loop_log`` steps it renders the test videos of
-``opt.test_generation_num`` test examples (training/video.py). At scene
-level each batch's SparseUNet geometry is built before its step and timed
-apart. The VAE feature cache and the wandb logger are not ported.
+device (the CUDA card unless ``--device`` names another).
+
+It runs the JAX CLI's default run: the model computes in
+``tpu.compute_dtype`` (``bfloat16`` by default; ``float32`` restores the
+float32 run, any other value raises), and with ``opt.use_fusion`` the
+frozen VAE's features come from the device feature cache
+(training/feature_cache.py) of ``tpu.vae_cache_entries`` slots (512 by
+default; 0 runs the VAE in every step), attached to each batch before its
+step. Real data comes through ``data.dataset_root`` (a ShapeNet tree) or
+``data.pts_dataset_root`` (a ScanNet tree); ``synthetic`` selects the
+procedural datasets.
+
+Every ``logging.loss_log`` steps it logs loss, PSNR, the gradient norm,
+``samples_per_sec`` and the cache's ``vae_cache_hit_rate`` through the
+logger (the console and ``metrics.jsonl`` in the output directory; wandb
+when ``wandb.entity`` is set); every ``logging.val_log`` steps and at the
+last it scores the ``val`` split with the eval step (novel-view PSNR and
+SSIM) and writes ``model_latest.ckpt``, and ``model_best.ckpt`` when the
+novel PSNR is the best yet; every ``logging.loop_log`` steps it renders
+the test videos of ``opt.test_generation_num`` test examples
+(training/video.py). At scene level each batch's SparseUNet geometry is
+built before its step and timed apart, as is the cache's attach.
 """
 
 from __future__ import annotations
@@ -35,7 +48,11 @@ from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
 from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
 from unipre3d_tpu_torch.training.config import load_config, save_config
-from unipre3d_tpu_torch.training.trainer import (create_train_state,
+from unipre3d_tpu_torch.training.feature_cache import (DeviceVAECache,
+                                                       make_feature_fn)
+from unipre3d_tpu_torch.training.logger import Logger
+from unipre3d_tpu_torch.training.trainer import (compute_dtype_of,
+                                                 create_train_state,
                                                  make_eval_step,
                                                  make_geometry_fn,
                                                  make_train_step)
@@ -69,6 +86,24 @@ def validate(eval_step, state, loader, device) -> dict:
             "ssim_novel": float(np.mean(ssims)) if ssims else 0.0}
 
 
+def make_cache(cfg, model, device):
+    """The VAE feature cache of a config: ``tpu.vae_cache_entries`` slots
+    of the conditioning views' ``decoder_block_3`` map when the config uses
+    the fusion, else None."""
+    entries = int((cfg.get("tpu") or {}).get("vae_cache_entries", 0))
+    if entries <= 0 or not bool(cfg.opt.use_fusion):
+        return None
+    if "training_resolution" in cfg.data:
+        h = w = int(cfg.data.training_resolution)
+    else:
+        h, w = int(cfg.data.training_height), int(cfg.data.training_width)
+    # decoder_block_3's width is the VAE's first block width
+    vo = dict(cfg.model.get("vae_overrides") or {})
+    channels = int(list(vo.get("block_out_channels", [128]))[0])
+    return DeviceVAECache(make_feature_fn(model), entries, h, w,
+                          channels=channels, device=device)
+
+
 def main(argv=None) -> dict:
     """Run the training loop; returns per-step ``losses``, ``psnrs``,
     ``grad_norms``, ``nan_skipped`` (1.0 where the NaN skip dropped the
@@ -80,7 +115,11 @@ def main(argv=None) -> dict:
     per-tile cap), the set-up time ``setup_s`` (config, dataset with its
     GT renders, model), ``val`` (per validation: ``iteration``,
     ``psnr_novel``, ``ssim_novel``, ``ms``), ``videos`` (the written test
-    videos), ``output_dir`` and ``best_psnr``."""
+    videos), ``output_dir``, ``best_psnr``, ``compute_dtype`` (its config
+    name), ``hit_rate`` (the feature cache's over the run; None without
+    the cache) and, with the cache, ``cache_ms`` (each batch's attach,
+    synchronized, before its step), ``cache_counts`` (its hits, host-tier
+    hits and misses) and ``cache_gib`` (its device buffer)."""
     args = parse_args(argv)
     cfg = load_config(args.config_name, config_dir=args.config_dir,
                       overrides=args.overrides)
@@ -98,7 +137,11 @@ def main(argv=None) -> dict:
     val_loader = Loader(val_ds, max(1, min(batch_size, len(val_ds))),
                         shuffle=False)
     test_loader = None       # built at the first test-video iteration
-    model, state = create_train_state(cfg, device=device, seed=seed)
+    compute_dtype = compute_dtype_of(cfg)
+    model, state = create_train_state(cfg, device=device, seed=seed,
+                                      dtype=compute_dtype)
+    cache = make_cache(cfg, model, device)
+    n_in = int(cfg.data.input_images)
     train_step = make_train_step(cfg, model)
     eval_step = make_eval_step(cfg, model)
     geometry_fn = make_geometry_fn(cfg, model)
@@ -110,9 +153,14 @@ def main(argv=None) -> dict:
         print(f"[train] resumed from step {state.step}", flush=True)
     _sync(device)
     setup_s = time.perf_counter() - t0
+    dtype_name = str(compute_dtype).replace("torch.", "")
     print(f"[train] device={device} params={n_params / 1e6:.2f}M "
-          f"backbone={cfg.model.backbone_type} setup {setup_s:.1f} s "
-          f"output {out_dir}", flush=True)
+          f"backbone={cfg.model.backbone_type} compute {dtype_name} "
+          f"setup {setup_s:.1f} s output {out_dir}", flush=True)
+    if cache is not None:
+        print(f"[train] VAE feature cache: {cache.capacity} slots "
+              f"({cache.nbytes / 2**30:.2f} GiB on the device)", flush=True)
+    logger = Logger(cfg, out_dir)
 
     iterations = int(cfg.opt.iterations)
     loss_log = int(cfg.logging.loss_log)
@@ -120,10 +168,22 @@ def main(argv=None) -> dict:
     loop_log = int(cfg.logging.get("loop_log", 2000))
     result = {"losses": [], "psnrs": [], "grad_norms": [], "nan_skipped": [],
               "step_ms": [], "geometry_ms": [], "valid_rows": [], "val": [],
-              "videos": [], "setup_s": setup_s, "output_dir": out_dir}
+              "videos": [], "setup_s": setup_s, "output_dir": out_dir,
+              "compute_dtype": dtype_name}
+    if cache is not None:
+        result["cache_ms"] = []
     batches = train_loader.iter_from(state.step)
+    t_last, samples_since = time.perf_counter(), 0
     for it in range(state.step + 1, iterations + 1):
-        batch = batch_to(next(batches), device)
+        host_batch = next(batches)
+        batch = batch_to(host_batch, device)
+        if cache is not None:
+            # hashed on the host from the numpy batch, before the step
+            _sync(device)
+            t = time.perf_counter()
+            batch["vae_features"] = cache.attach(host_batch, n_in)
+            _sync(device)
+            result["cache_ms"].append((time.perf_counter() - t) * 1e3)
         if geometry_fn is not None:
             _sync(device)
             t = time.perf_counter()
@@ -143,18 +203,22 @@ def main(argv=None) -> dict:
         for k in ("dups", "budget_dropped", "cap_dropped"):
             if k in metrics:
                 result.setdefault(k, []).append(int(metrics[k]))
+        samples_since += batch_size
         if it % loss_log == 0:
-            print(f"[train] it {it} loss {metrics['loss']:.6f} psnr "
-                  f"{metrics['psnr']:.3f} grad_norm "
-                  f"{metrics['grad_norm']:.4f} step "
-                  f"{result['step_ms'][-1]:.1f} ms", flush=True)
+            now = time.perf_counter()
+            metrics["samples_per_sec"] = samples_since / (now - t_last)
+            metrics["step_ms"] = result["step_ms"][-1]
+            if cache is not None:
+                metrics["vae_cache_hit_rate"] = round(cache.hit_rate, 4)
+            logger.log(it, metrics)
+            t_last, samples_since = now, 0
         if it % val_log == 0 or it == iterations:
             t = time.perf_counter()
             val = validate(eval_step, state, val_loader, device)
             val.update(iteration=it, ms=(time.perf_counter() - t) * 1e3)
             result["val"].append(val)
-            print(f"[val] it {it} psnr_novel {val['psnr_novel']:.3f} "
-                  f"ssim_novel {val['ssim_novel']:.4f}", flush=True)
+            logger.log(it, {"psnr_novel": val["psnr_novel"],
+                            "ssim_novel": val["ssim_novel"]}, prefix="val")
             ckpt_lib.save_checkpoint(latest, model, state, best_psnr)
             if val["psnr_novel"] > best_psnr:
                 best_psnr = val["psnr_novel"]
@@ -168,13 +232,26 @@ def main(argv=None) -> dict:
                 test_loader = Loader(get_dataset(cfg, "test", device), 1,
                                      shuffle=False, drop_last=False)
             try:
-                result["videos"] += generate_test_examples(
+                paths = generate_test_examples(
                     model, state, cfg, test_loader, out_dir, it,
                     int(cfg.opt.get("test_generation_num", 1)))
+                result["videos"] += paths
+                logger.log_videos(it, paths)
             except ImportError as e:     # the writer's imageio is missing
                 print(f"[train] test videos rendered, not written: {e}",
                       flush=True)
-    result["best_psnr"] = best_psnr
+    batches.close()
+    for loader in (train_loader, val_loader, test_loader):
+        if loader is not None:
+            loader.close()
+    logger.close()
+    result.update(best_psnr=best_psnr, hit_rate=None)
+    if cache is not None:
+        result.update(hit_rate=cache.hit_rate,
+                      cache_counts={"hits": cache.hits,
+                                    "l2_hits": cache.l2_hits,
+                                    "misses": cache.misses},
+                      cache_gib=cache.nbytes / 2**30)
     print(f"[train] done at iteration {iterations}; best PSNR_novel "
           f"{best_psnr:.3f}", flush=True)
     return result

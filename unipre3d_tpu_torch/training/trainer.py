@@ -21,7 +21,15 @@ JAX trainer reads a value it does not know as ``xla``).
 
 The scene level takes its index structures (SparseUNet geometry) from
 ``batch["geometry"]``, built before the step by ``make_geometry_fn``, or
-builds them inside the step when the batch has none.
+builds them inside the step when the batch has none. Both steps take the
+conditioning views' VAE features from ``batch["vae_features"]`` when the
+feature cache attached them (training/feature_cache.py), and run the VAE
+otherwise.
+
+The model computes in the ``dtype`` given to ``create_train_state``
+(float32 by default, as the JAX package's; the CLI passes
+``compute_dtype_of(cfg)``, bfloat16 by default); the parameters, the
+optimizer, the EMA and the renderer stay float32.
 """
 
 from __future__ import annotations
@@ -50,6 +58,24 @@ from unipre3d_tpu_torch.utils import losses as loss_lib
 
 DENSE_MAX_N = 4096   # the dense route serves up to this many gaussians
 TRAIN_IMPLS = ("auto", "pallas_dense", "pallas_binned", "xla")
+COMPUTE_DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
+
+
+def compute_dtype_of(cfg) -> torch.dtype:
+    """``tpu.compute_dtype`` (``bfloat16``, the default, or ``float32``) as
+    a torch dtype. ``tpu.param_dtype`` may only be ``float32``: the
+    parameters stay float32, as in the JAX package. Any other value of
+    either key raises (the JAX CLI reads an unknown compute dtype as
+    float32)."""
+    tpu = cfg.get("tpu") or {}
+    name = str(tpu.get("compute_dtype", "bfloat16"))
+    if name not in COMPUTE_DTYPES:
+        raise ValueError(f"tpu.compute_dtype {name!r}: one of "
+                         f"{tuple(COMPUTE_DTYPES)}")
+    param = str(tpu.get("param_dtype", "float32"))
+    if param != "float32":
+        raise ValueError(f"tpu.param_dtype {param!r}: only float32")
+    return COMPUTE_DTYPES[name]
 
 
 def split_frozen(model: nn.Module):
@@ -231,13 +257,14 @@ class TrainState:
     generator: torch.Generator      # DropPath draws
 
 
-def create_train_state(cfg, device=None, seed: int = 0,
-                       state_dict=None) -> Tuple[GaussianSplatPredictor,
-                                                 TrainState]:
-    """Model (random init from ``seed``, or ``state_dict``), optimizer over
-    the trainable parameters, EMA copy and DropPath generator."""
+def create_train_state(cfg, device=None, seed: int = 0, state_dict=None,
+                       dtype: torch.dtype = torch.float32
+                       ) -> Tuple[GaussianSplatPredictor, TrainState]:
+    """Model computing in ``dtype`` (random init from ``seed``, or
+    ``state_dict``; float32 parameters), optimizer over the trainable
+    parameters, EMA copy and DropPath generator."""
     dev = resolve_device(device)
-    model = build_predictor(cfg)
+    model = build_predictor(cfg, dtype=dtype)
     init_like_flax(model, torch.Generator().manual_seed(seed))
     if state_dict is not None:
         model.load_state_dict(state_dict)
@@ -271,7 +298,8 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
             params: Dict[str, torch.Tensor] = None):
     """The model's gaussians for a batch (object or scene schema), with
     ``params`` (a name -> tensor dict, e.g. the EMA) standing in for the
-    module's parameters of the same names when given."""
+    module's parameters of the same names when given, and the batch's
+    cached ``vae_features`` for the VAE when it has them."""
     if model.level == "scene":
         args = (batch["point_cloud"], batch["gt_images"][:, :n_in])
         kwargs = dict(unprojected_coords=batch.get("unprojected_coords"),
@@ -280,6 +308,7 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
         args = (batch["point_cloud"], batch["gt_images"][:, :n_in],
                 batch["view_to_world_transforms"][:, :n_in])
         kwargs = dict(generator=generator)
+    kwargs["vae_features"] = batch.get("vae_features")
     if params is None:
         return model(*args, **kwargs)
     return torch.func.functional_call(model, params, args, kwargs)
