@@ -24,7 +24,12 @@ Phases, all of them, in order; any failure exits non-zero:
    chunk rules and a case built to meet the edges of
    its per-warp cull; T and images bit for bit; the cull's plain twin must
    keep every pair the card's plain walk does not skip; the warp-column
-   iterations of the first port's rows and of the culled patches).
+   iterations of the first port's rows and of the culled patches); the
+   dense splat also at PointMLP's and PCM's main-path shape (128 renders of
+   1,024 gaussians, two 512-chunks), bit for bit and timed; the
+   selective-scan pair (Mamba3D and PCM) at Mamba3D's shape, PCM's first
+   and deepest stages and two edge cases, the output and every input's
+   gradient against the plain recurrence, timed.
 4. train: the default run (bfloat16 compute dtype, the VAE feature cache)
    on synthetic data through ``unipre3d_tpu_torch.train_network``, each
    under its own output directory: six full-width
@@ -45,7 +50,12 @@ Phases, all of them, in order; any failure exits non-zero:
    tests/test_torch_compute_dtype.py, and at least 1e-4 apart). The
    modules must compute in the dtype asked for: the first transformer,
    SparseUNet and VAE blocks of each default run, and the first
-   transformer block of each of those steps, return it.
+   transformer block of each of those steps, return it. Then three
+   full-width default-run steps of each of ``pointmlp_pretraining``,
+   ``mamba3d_pretraining`` and ``pcm_pretraining`` with their val loop
+   (the dense pair must launch on each path, the scan pair on Mamba3D's
+   and PCM's, each backbone's first block must return bfloat16), with the
+   time of one forward's FPS calls beside the step's.
 5. test renders: the object orbit (80 frames) and the test views of a
    test example from the trained run's checkpoint, and the 16 test views of
    a full-width scene at 84,096 slots, through the streaming splat, each
@@ -57,7 +67,10 @@ Phases, all of them, in order; any failure exits non-zero:
    same weights and batch; for the scene also each SparseUNet/PointFusion
    op over the step's geometry; the streaming splat with its gradients,
    ``render_predicted`` on the ``xla`` and ``pallas`` routes and a small
-   object eval step, card against CPU. The streaming backward, which no
+   object eval step, card against CPU; one float32 step of each of the
+   three backbones of slice 8 at full width, card against CPU (gradients
+   against the CPU's own move under a 1e-6 perturbation where max-pool
+   ties make that larger than TOL_STEP_GRAD). The streaming backward, which no
    training route runs, takes its launch count from the card-side call of
    the streaming splat with its gradients.
 
@@ -309,10 +322,11 @@ def phase_kernels(device):
     import torch
     from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
 
-    shapes = [  # (R, N, H, W): main path, multi-chunk, top of the route,
-        # cull edges (N = 0: cull_edge_case)
-        (128, 128, 128, 128), (8, 1000, 128, 128), (4, 4096, 128, 128),
-        (8, 0, 128, 128)]
+    shapes = [  # (R, N, H, W): main path (transformer, Mamba3D), main path
+        # of PointMLP and PCM (a gaussian a point: two 512-chunks),
+        # multi-chunk, top of the route, cull edges (N = 0: cull_edge_case)
+        (128, 128, 128, 128), (128, 1024, 128, 128), (8, 1000, 128, 128),
+        (4, 4096, 128, 128), (8, 0, 128, 128)]
     results = {}
     for si, (R, N, H, W) in enumerate(shapes):
         if N:
@@ -366,8 +380,9 @@ def phase_kernels(device):
             if missed:
                 raise AssertionError("the per-tile cull drops live pairs")
             del surv, live
-        if si == 0:  # the main-path shape: time and bound
-            it_k, it_p = 50, 3
+        if si in (0, 1):  # the main-path shapes: time and bound
+            key = "" if si == 0 else f"_{N}"
+            it_k, it_p = (50, 3) if si == 0 else (20, 1)
             ms_f = cuda_ms(lambda: sd.dense_fwd(data, bg, H, W), it_k)
             ms_b = cuda_ms(lambda: sd.dense_bwd(data, bg, out, tfin, g_out,
                                                 H, W), it_k)
@@ -379,8 +394,8 @@ def phase_kernels(device):
             # the cull's survivors, counted on the card by its plain twin
             surv = sd.tile_survivors_ref(data, H, W).sum(-1)  # [R, tiles]
             evaluated = int(surv.sum()) * sd.TILE * sd.TILE
-            log(f"[kernels] main shape: survivors of the per-tile cull "
-                f"{float(surv.float().mean()):.2f} a tile (max "
+            log(f"[kernels] main shape N={N}: survivors of the per-tile "
+                f"cull {float(surv.float().mean()):.2f} a tile (max "
                 f"{int(surv.max())}) of {n_pad} columns; pairs evaluated "
                 f"(survivors x tile pixels) {evaluated} against "
                 f"{R * H * W * n_pad} unculled")
@@ -393,19 +408,116 @@ def phase_kernels(device):
             img = R * H * W * 4
             bf, byf = bound(tab + 12 + 4 * img, pairs, FWD_OPS_PER_PAIR)
             bb, byb = bound(2 * tab + 6 * img, pairs, BWD_OPS_PER_PAIR)
-            log(f"[kernels] main shape: {pairs} contributing pairs; fwd "
-                f"{ms_f:.4f} ms (plain {pms_f:.3f}, bound {bf:.4f} by {byf});"
-                f" bwd {ms_b:.4f} ms (plain {pms_b:.3f}, bound {bb:.4f} by "
-                f"{byb})")
-            results["fwd"] = dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
-                                  bound_by=byf)
-            results["bwd"] = dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
-                                  bound_by=byb)
+            log(f"[kernels] main shape R={R} N={N}: {pairs} contributing "
+                f"pairs; fwd {ms_f:.4f} ms (plain {pms_f:.3f}, bound "
+                f"{bf:.4f} by {byf}); bwd {ms_b:.4f} ms (plain {pms_b:.3f}, "
+                f"bound {bb:.4f} by {byb})")
+            results["fwd" + key] = dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
+                                        bound_by=byf)
+            results["bwd" + key] = dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
+                                        bound_by=byb)
         results.setdefault("fwd_err", 0.0)
         results["fwd_err"] = max(results["fwd_err"], err_out, err_t)
         results.setdefault("bwd_err", 0.0)
         results["bwd_err"] = max(results["bwd_err"], abs_bwd)
         del data, out, tfin, dgrad, out_r, tfin_r, dgrad_r
+        torch.cuda.empty_cache()
+    return results
+
+
+# the selective scan's operations per (b, t, d, n) state lane, counted from
+# csrc/selective_scan.cu: (float32 ops, special-function ops). Forward: dt A,
+# the decay-and-add (2 FMA), C h and its share of the shuffle sum; exp.
+# Backward, what the function needs: the state recomputed once (dt A, 2 FMA)
+# and the gradient terms (dh, d exp, dA, ddt, du, dB, dC: ~16); exp.
+SCAN_FWD_OPS = (6, 1)
+SCAN_BWD_OPS = (22, 1)
+TOL_SCAN_FWD = 1e-5   # max |err| over max |y|
+TOL_SCAN_GRAD = 1e-4  # max |err| over max |reference|, per input's gradient
+
+
+def scan_case(Bsz, L, D, seed, device):
+    """The mixer's scan inputs at one shape, from a seeded generator: u,
+    delta (before the softplus), A = -exp(A_log) (S4D-real, 1..16), B, C,
+    D, z, delta_bias (log-uniform dt in [1e-3, 0.1] before its inverse
+    softplus), float32 on ``device``."""
+    import torch
+    from unipre3d_tpu_torch.models.mamba_mixer import a_log_init, dt_bias_init
+    from unipre3d_tpu_torch.ops.scan import SCAN_N
+    g = torch.Generator().manual_seed(seed)
+    r = lambda *s: torch.randn(*s, generator=g)  # noqa: E731
+    ins = [r(Bsz, L, D), 0.5 * r(Bsz, L, D), -torch.exp(a_log_init(D, SCAN_N)),
+           r(Bsz, L, SCAN_N), r(Bsz, L, SCAN_N), torch.ones(D), r(Bsz, L, D),
+           dt_bias_init(D)]
+    return [t.to(device) for t in ins]
+
+
+def phase_scan_kernels(device):
+    """The selective-scan pair against its plain version on the card at
+    Mamba3D's shape, PCM's stage 0 and deepest stage, and two edge cases
+    (L = 1; L = 37, which neither the forward's 8-step groups nor the
+    backward's 16-step segments divide): the output to TOL_SCAN_FWD and
+    every input's gradient to TOL_SCAN_GRAD. Times both kernels and both
+    plain versions at each main-path shape (CUDA events)."""
+    import torch
+    from unipre3d_tpu_torch.ops import scan as sc
+    shapes = [("Mamba3D", 32, 129, 768), ("PCM stage 0", 32, 524, 768),
+              ("PCM stage 3", 32, 76, 1536), ("edge L=1", 4, 1, 768),
+              ("edge L=37", 3, 37, 1536)]
+    results = {"fwd_err": 0.0, "bwd_err": 0.0}
+    for si, (label, Bsz, L, D) in enumerate(shapes):
+        ins = scan_case(Bsz, L, D, si, device)
+        g = torch.randn(ins[0].shape, device=device,
+                        generator=torch.Generator(device).manual_seed(si))
+        y = sc.scan_fwd(*ins, True)
+        grads = sc.scan_bwd(*ins, True, g)
+        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y_r = sc.selective_scan_ref(*leaves, delta_softplus=True)
+        grads_r = torch.autograd.grad(y_r, leaves, g)
+        torch.cuda.synchronize()
+        y_r = y_r.detach()
+        err_y = float((y - y_r).abs().max() / y_r.abs().max())
+        errs = [float((a - b).abs().max() / (b.abs().max() + 1e-30))
+                for a, b in zip(grads, grads_r)]
+        ok = bool(torch.isfinite(y_r).all()) and err_y <= TOL_SCAN_FWD and \
+            max(errs) <= TOL_SCAN_GRAD
+        log(f"[kernels] selective scan {label} B={Bsz} L={L} D={D}: fwd "
+            f"max|err|/max|y| {err_y:.2e} (tol {TOL_SCAN_FWD:g}); bwd max "
+            f"rel err {max(errs):.2e} (u, delta, A, B, C, D, z, bias: "
+            f"{', '.join(f'{e:.1e}' for e in errs)}; tol "
+            f"{TOL_SCAN_GRAD:g})")
+        if not ok:
+            raise AssertionError(f"the selective-scan kernels disagree with "
+                                 f"their plain version at {label}")
+        results["fwd_err"] = max(results["fwd_err"],
+                                 float((y - y_r).abs().max()))
+        results["bwd_err"] = max(results["bwd_err"], max(
+            float((a - b).abs().max()) for a, b in zip(grads, grads_r)))
+        if si < 3:
+            ms_f = cuda_ms(lambda: sc.scan_fwd(*ins, True), 20)
+            ms_b = cuda_ms(lambda: sc.scan_bwd(*ins, True, g), 20)
+            pms_f = cuda_ms(lambda: sc.selective_scan_ref(
+                *ins, delta_softplus=True), 2)
+            y_r = sc.selective_scan_ref(*leaves, delta_softplus=True)
+            pms_b = cuda_ms(lambda: torch.autograd.grad(
+                y_r, leaves, g, retain_graph=True), 2)
+            bld, bln = Bsz * L * D * 4, Bsz * L * sc.SCAN_N * 4
+            lanes = Bsz * L * D * sc.SCAN_N
+            small = (D * sc.SCAN_N + 3 * D) * 4
+            # forward: u, delta, z in, y out; B, C in. Backward: u, delta,
+            # z, dy in, du, ddelta, dz out; B, C in, dB, dC out
+            bf, byf = bound(4 * bld + 2 * bln + small, lanes, SCAN_FWD_OPS)
+            bb, byb = bound(7 * bld + 4 * bln + 2 * small, lanes,
+                            SCAN_BWD_OPS)
+            log(f"[kernels] selective scan {label}: fwd {ms_f:.4f} ms (plain "
+                f"{pms_f:.3f}, bound {bf:.4f} by {byf}); bwd {ms_b:.4f} ms "
+                f"(plain {pms_b:.3f}, bound {bb:.4f} by {byb})")
+            if si == 0:   # Mamba3D's: the kernels line
+                results["fwd"] = dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
+                                      bound_by=byf)
+                results["bwd"] = dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
+                                      bound_by=byb)
+        del ins, g, y, grads, leaves, y_r, grads_r
         torch.cuda.empty_cache()
     return results
 
@@ -910,6 +1022,8 @@ def first_output_dtypes(kinds):
     handle = None
 
     def hook(module, _, out):
+        if isinstance(out, tuple):   # PCM's MambaBlock: (output, residual)
+            out = out[0]
         for label, cls in kinds.items():
             if label not in seen and isinstance(module, cls) and \
                     torch.is_tensor(out):
@@ -1053,6 +1167,86 @@ def phase_train(device_line, tmp):
     launches.update(scene["pallas_binned"])
     default_run_holds(device_line)
     return launches
+
+
+# the object backbones of slice 8, each with its first block's class and
+# whether its step runs the selective scan
+NEW_BACKBONES = ("pointmlp", "mamba3d", "pcm")
+
+
+def fps_shapes(backbone):
+    """(B, N, C, npoint) of each furthest_point_sample call of one forward
+    at batch 32 and 1024 points."""
+    if backbone == "mamba3d":
+        return [(32, 1024, 3, 128)]
+    c = 4 if backbone == "pointmlp" else 3
+    return [(32, n, c, n // 2) for n in (1024, 512, 256, 128)]
+
+
+def fps_ms(backbone, device):
+    """The FPS calls of one forward of ``backbone``, host clock around
+    synchronized calls (its Python loop launches ~8 kernels a sample), ms;
+    median of 3 after a warm-up."""
+    import torch
+    from unipre3d_tpu_torch.ops.point_ops import furthest_point_sample
+    g = torch.Generator(device).manual_seed(0)
+    clouds = [(torch.rand(B, N, C, device=device, generator=g), k)
+              for B, N, C, k in fps_shapes(backbone)]
+
+    def run():
+        for x, k in clouds:
+            furthest_point_sample(x, k)
+    times = []
+    for _ in range(4):
+        torch.cuda.synchronize()
+        t = time.perf_counter()
+        run()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t) * 1e3)
+    return sorted(times[1:])[1]
+
+
+def phase_train_backbones(device_line, tmp):
+    """The default run (bfloat16, the VAE feature cache) of each object
+    backbone of slice 8 through ``train_network``: three full-width steps
+    with their val loop. The dense splat pair must launch on every path,
+    the selective-scan pair on Mamba3D's and PCM's; the first block of each
+    backbone must return bfloat16. Prints each step's time, the peak
+    memory, and the FPS calls' time beside the step's. Returns the launch
+    counts summed over the three paths."""
+    import torch
+    from unipre3d_tpu_torch.models import mamba3d, pcm, pointmlp
+    from unipre3d_tpu_torch.ops import scan as sc
+    from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+    first_block = {"pointmlp": ("PointMLP ConvBNReLURes",
+                                pointmlp.ConvBNReLURes),
+                   "mamba3d": ("Mamba3DBlock", mamba3d.Mamba3DBlock),
+                   "pcm": ("PCM MambaBlock", pcm.MambaBlock)}
+    total = {}
+    for bb in NEW_BACKBONES:
+        counters = {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD}
+        if bb != "pointmlp":
+            counters.update(scan_fwd=sc.SCAN_FWD, scan_bwd=sc.SCAN_BWD)
+        kinds = dict([first_block[bb]])
+        handle, dtypes = first_output_dtypes(kinds)
+        result, launches = run_train(
+            ["--config-name", f"{bb}_pretraining",
+             "data.dataset_root=synthetic", "--output-dir",
+             os.path.join(tmp, bb), "opt.iterations=3", "logging.loss_log=1"],
+            counters, device_line, bb)
+        handle.remove()
+        hold_dtypes(bb, dtypes, kinds, torch.bfloat16)
+        if result["compute_dtype"] != "bfloat16":
+            raise AssertionError(f"{bb}: compute {result['compute_dtype']}")
+        step = sorted(result["step_ms"][1:])[len(result["step_ms"][1:]) // 2]
+        fps = fps_ms(bb, torch.device("cuda"))
+        log(f"[train] {bb}: FPS calls of one forward ({len(fps_shapes(bb))}"
+            f" calls, {sum(k for *_, k in fps_shapes(bb))} samples) "
+            f"{fps:.1f} ms against a median step of {step:.1f} ms (share "
+            f"{fps / step:.3f}) on {device_line}")
+        for k, v in launches.items():
+            total[k] = total.get(k, 0) + v
+    return total
 
 
 def default_run_holds(device_line):
@@ -1303,13 +1497,34 @@ def one_launch_equals_per_view(gaussians, mask, cfg, cams_by_name):
     return "; ".join(out)
 
 
-def step_snapshot(cfg, batch, dev):
-    """One train step of ``cfg`` on ``dev`` from seed-0 weights: (metrics,
+def without_drops(model):
+    """DropPath and Dropout at rate 0: their masks come from the step's
+    generator, whose draws differ between the card and the CPU. (The
+    transformer's rates are 0 through its overrides; PointMLP has none;
+    Mamba3D's and PCM's take no overrides.)"""
+    from unipre3d_tpu_torch.models import mamba3d, pcm
+    for m in model.modules():
+        if isinstance(m, (mamba3d.Mamba3DBlock, pcm.MambaBlock)):
+            m.drop_path = 0.0
+        if isinstance(m, pcm.SegHead):
+            m.dropout = 0.0
+    return model
+
+
+def step_snapshot(cfg, batch, dev, scale=1.0):
+    """One train step of ``cfg`` on ``dev`` from seed-0 weights (the
+    trainable ones times ``scale``), no DropPath or Dropout: (metrics,
     Adam's first moment per trainable tensor, on the CPU)."""
+    import torch
     from unipre3d_tpu_torch.data import batch_to
     from unipre3d_tpu_torch.training import trainer
     model, state = trainer.create_train_state(
         cfg, device=dev, seed=0, dtype=trainer.compute_dtype_of(cfg))
+    without_drops(model)
+    if scale != 1.0:
+        with torch.no_grad():
+            for _, p in trainer.split_frozen(model)[0]:
+                p.mul_(scale)
     metrics = trainer.make_train_step(cfg, model)(state, batch_to(batch, dev))
     names = [n for n, _ in trainer.split_frozen(model)[0]]
     return metrics, {n: m.cpu() for n, m in zip(names, state.optimizer.mu)}
@@ -1478,6 +1693,61 @@ def phase_parity():
         raise AssertionError("scene: card step disagrees with the CPU step")
 
 
+def unclipped_grads(model_state_metrics):
+    """The step's gradient per trainable tensor, from Adam's first moment
+    after one step (0.1 x the gradient clipped to norm 1), unclipped."""
+    metrics, mu = model_state_metrics
+    scale = 10.0 * max(metrics["grad_norm"], 1.0)
+    return metrics, {n: m * scale for n, m in mu.items()}
+
+
+def phase_parity_backbones():
+    """One float32 step of each object backbone of slice 8 at full width
+    (tiny VAE, batch 2, 256 points, 32x32; DropPath and Dropout at rate 0)
+    on the card and on the CPU, same weights and batch: the loss to 1e-5
+    relative, and each trainable tensor's gradient (unclipped) in relative
+    L2 to TOL_STEP_GRAD, or to 3x the
+    distance the CPU's own gradient moves when the weights are scaled by
+    1 + 1e-6 where that is larger: at random init PointMLP's and PCM's
+    max-pools over K neighbours hold near-ties that such a perturbation
+    flips (tests/test_torch_object_backbones.py)."""
+    from unipre3d_tpu_torch.data import random_batch
+    from unipre3d_tpu_torch.training.config import load_config
+    for bb in NEW_BACKBONES:
+        cfg = load_config(f"{bb}_pretraining", overrides=FLOAT32_PINS + [
+            "data.training_resolution=32", "opt.batch_size=2",
+            "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "
+            "layers_per_block: 1}"])
+        batch = random_batch(cfg, batch=2, n_points=256, n_views=3, seed=0)
+        m_a, g_a = unclipped_grads(step_snapshot(cfg, batch, "cpu"))
+        _, g_moved = unclipped_grads(step_snapshot(cfg, batch, "cpu",
+                                                   scale=1 + 1e-6))
+        m_b, g_b = unclipped_grads(step_snapshot(cfg, batch, "cuda"))
+        rel = lambda a, b: float((b - a).norm() / (a.norm() + 1e-30))  # noqa
+        gmax = max(float(g.abs().max()) for g in g_a.values())
+        worst, worst_name, n_noise = 0.0, None, 0
+        for n, a in g_a.items():
+            own = rel(a, g_moved[n])
+            if float(a.abs().max()) < 1e-3 * gmax and own > 0.1:
+                # the rounding noise of an analytically zero gradient
+                n_noise += 1
+                if float(g_b[n].abs().max()) >= 1e-3 * gmax:
+                    raise AssertionError(f"{bb}: {n} should be noise")
+                continue
+            lim = max(TOL_STEP_GRAD, 3 * own)
+            if rel(a, g_b[n]) / lim > worst:
+                worst, worst_name = rel(a, g_b[n]) / lim, n
+        loss_err = abs(m_a["loss"] - m_b["loss"]) / abs(m_a["loss"])
+        log(f"[parity] {bb}: loss cpu {m_a['loss']:.7f} cuda "
+            f"{m_b['loss']:.7f} (rel {loss_err:.2e}, tol 1e-5); gradient "
+            f"rel L2 over its bound at most {worst:.3f} (at {worst_name}; "
+            f"bound max({TOL_STEP_GRAD:g}, 3x the CPU's own move); "
+            f"{n_noise} analytically zero tensors are noise on both)")
+        if loss_err > 1e-5 or worst > 1.0:
+            raise AssertionError(f"{bb}: card step disagrees with the CPU "
+                                 f"step")
+
+
 def phase_eval_parity():
     """Card against CPU: the streaming splat (R = 2, 1,300 gaussians at
     64x64, 32x32 tiles) forward and its gradients w.r.t. mean2d, conic,
@@ -1608,26 +1878,32 @@ def build_kernels(names):
                 log(f"[build]   {name}: {line.strip()}")
 
 
-def kernel_rows(dense, binned, stream, launches):
-    """The ``{"kernels": [...]}`` rows of the six ported kernels."""
+def kernel_rows(dense, binned, stream, scan, launches):
+    """The ``{"kernels": [...]}`` rows of the six ported Pallas kernels and
+    of the selective-scan pair (which replaces a jax.lax.associative_scan,
+    no Pallas kernel)."""
     rows = []
+    rast = "unipre3d_tpu/ops/rasterizer/"
     for timing, src, tpu_file, entries in (
-            (dense, "splat_dense", "pallas_splat_dense.py",
+            (dense, "splat_dense", rast + "pallas_splat_dense.py",
              (("fwd", "dense_fwd", "_dense_fwd_kernel", 193),
               ("bwd", "dense_bwd", "_dense_bwd_kernel", 220))),
-            (binned, "splat_binned", "pallas_splat_binned.py",
+            (binned, "splat_binned", rast + "pallas_splat_binned.py",
              (("fwd", "binned_fwd", "_fwd_kernel", 73),
               ("bwd", "binned_bwd", "_bwd_kernel", 116))),
-            (stream, "splat_stream", "pallas_splat.py",
+            (stream, "splat_stream", rast + "pallas_splat.py",
              (("fwd", "stream_fwd", "_fwd_kernel", 103),
-              ("bwd", "stream_bwd", "_bwd_kernel", 137)))):
+              ("bwd", "stream_bwd", "_bwd_kernel", 137))),
+            (scan, "selective_scan", "unipre3d_tpu/ops/scan.py",
+             (("fwd", "scan_fwd", "selective_scan, jax.lax.associative_scan",
+               36),
+              ("bwd", "scan_bwd", "selective_scan's gradient", 36)))):
         for key, fn, kern, line in entries:
             t = timing[key]
             rows.append({
                 "name": f"{src}.{fn}", "route": "cuda",
                 "source": f"unipre3d_tpu_torch/csrc/{src}.cu",
-                "replaces": f"unipre3d_tpu/ops/rasterizer/{tpu_file}:{line} "
-                            f"({kern})",
+                "replaces": f"{tpu_file}:{line} ({kern})",
                 "launches": launches[fn],
                 "max_abs_err": timing[f"{key}_err"],
                 "ms": t["ms"], "plain_ms": t["plain_ms"],
@@ -1651,17 +1927,22 @@ def main():
     smi = nvidia_smi_line()
     log(f"[device] {name} count={count} nvidia-smi: {smi}")
 
-    build_kernels(["splat_dense", "splat_binned", "splat_stream"])
+    build_kernels(["splat_dense", "splat_binned", "splat_stream",
+                   "selective_scan"])
     dense = phase_kernels(device)
+    scan = phase_scan_kernels(device)
     binned = phase_binned_kernels(device)
     stream = phase_stream_kernels(device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         launches = phase_train(smi, tmp)
+        for k, v in phase_train_backbones(smi, tmp).items():
+            launches[k] = launches.get(k, 0) + v
         phase_test_renders(smi, tmp)
     phase_parity()
+    phase_parity_backbones()
     launches["stream_bwd"] = phase_eval_parity()
 
-    rows = kernel_rows(dense, binned, stream, launches)
+    rows = kernel_rows(dense, binned, stream, scan, launches)
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -11,6 +11,9 @@ the per-gaussian terms in an order that changes from run to run. The binned
 and streaming kernels walk in the plain version's order with its
 arithmetic: their log T is held bit for bit, and so are the dense kernels'
 T and images at the edges of their per-tile cull.
+The selective-scan pair: the forward within 1e-5 of max |y| and each
+gradient within 1e-4 relative to its largest entry (sums over D, or over
+batch and time, in another order than autograd's).
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -20,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+from unipre3d_tpu_torch.ops import scan as sc
 from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
 from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
 from unipre3d_tpu_torch.ops.rasterizer import splat_stream as ss
@@ -528,3 +532,45 @@ def test_stream_kernels_match_plain_versions_at_the_cull_edges(cuda):
         assert torch.equal(out, out_r), case
         for k in range(9):
             assert rel_err(dgrad_r[:, k], dgrad[:, k]) < 1e-4, (case, k)
+
+
+def scan_inputs(Bsz, L, D, seed, device, full=True):
+    """Mamba-like scan inputs (numpy seed): u, delta, A, B, C, D, z, bias;
+    D, z and bias None unless ``full``. ``full`` deltas go through the
+    softplus (the mixer's), the others are taken as they are: positive, so
+    that exp(delta A) decays."""
+    rng = np.random.default_rng(seed)
+    f = lambda a: torch.tensor(a, dtype=torch.float32, device=device)
+    u = f(rng.normal(size=(Bsz, L, D)))
+    delta = f(rng.normal(-1.0, 1.0, (Bsz, L, D)) if full
+              else rng.uniform(1e-3, 0.2, (Bsz, L, D)))
+    A = f(-np.exp(rng.uniform(0, np.log(16), (D, sc.SCAN_N))))
+    Bm = f(rng.normal(size=(Bsz, L, sc.SCAN_N)))
+    Cm = f(rng.normal(size=(Bsz, L, sc.SCAN_N)))
+    if not full:
+        return u, delta, A, Bm, Cm, None, None, None
+    return (u, delta, A, Bm, Cm, f(rng.normal(size=D)),
+            f(rng.normal(size=(Bsz, L, D))), f(rng.normal(-2, 0.5, D)))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,L,D,full,softplus", [
+    (2, 1, 32, True, True), (2, 17, 32, True, True), (3, 129, 64, True, True),
+    (2, 40, 48, False, False), (2, 40, 48, False, True),
+    (1, 76, 1536, True, True)])
+def test_scan_kernels_match_plain_version(cuda, Bsz, L, D, full, softplus):
+    ins = [t if t is None else t.requires_grad_(True)
+           for t in scan_inputs(Bsz, L, D, L + D, cuda, full)]
+    g = torch.randn(Bsz, L, D, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(0))
+    n0, n1 = sc.SCAN_FWD.launches, sc.SCAN_BWD.launches
+    y = sc.selective_scan(*ins, delta_softplus=softplus)
+    grads = torch.autograd.grad(y, [t for t in ins if t is not None], g)
+    assert (sc.SCAN_FWD.launches - n0, sc.SCAN_BWD.launches - n1) == (1, 1)
+    y_r = sc.selective_scan_ref(*ins, delta_softplus=softplus)
+    grads_r = torch.autograd.grad(y_r, [t for t in ins if t is not None], g)
+    torch.cuda.synchronize()
+    assert torch.isfinite(y_r).all()
+    assert rel_err(y_r.detach(), y.detach()) < 1e-5
+    for a, b in zip(grads_r, grads):
+        assert rel_err(a, b) < 1e-4

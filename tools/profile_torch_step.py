@@ -3,18 +3,19 @@
 
     python3 tools/profile_torch_step.py [--tf32] [--scene]
                                         [--dtype bfloat16] [--cache]
+                                        [--backbone pointmlp|mamba3d|pcm]
 
-Without ``--scene``: ``transformer_pretraining`` at full width (random
-weights from seed 42) on a random batch of the real shapes (batch 32, 1024
-points, 1 + 4 views at 128²). With ``--scene``: ``sparseunet_pretraining``
+Without ``--scene``: ``<backbone>_pretraining`` (``transformer`` by
+default) at full width (random weights from seed 42) on a random batch of
+the real shapes (batch 32, 1024 points, 1 + 4 views at 128²). With ``--scene``: ``sparseunet_pretraining``
 at full width on the binned splat route (batch 1, 80,000 point slots, 8 + 8
 views at 160x120) on one synthetic scene, its SparseUNet geometry built
 before each step and timed apart. Runs two warm-up steps, then times three
 steps with the host clock around synchronized steps and traces them with
 ``torch.profiler``. Prints the card's name and power limit, the step times,
 the device time of the step's named ranges (``step/forward``,
-``predictor/frozen_vae``, ``predictor/sparseunet``, ``step/render``,
-``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
+``predictor/frozen_vae``, ``predictor/sparseunet``, ``point_ops/fps``,
+``step/render``, ``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
 time over wall time) and the top kernels by device time.
 TF32 is off unless ``--tf32`` (as in chip_smoke.py). The model computes in
 ``--dtype`` (default float32); with ``--cache`` each step takes the
@@ -45,6 +46,8 @@ def main():
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--cache", action="store_true")
+    ap.add_argument("--backbone", default="transformer",
+                    choices=("transformer", "pointmlp", "mamba3d", "pcm"))
     args = ap.parse_args()
 
     import torch
@@ -69,7 +72,7 @@ def main():
         host = collate([SyntheticSceneDataset(cfg, num_scenes=1, seed=0,
                                               device=dev)[0]])
     else:
-        cfg = load_config("transformer_pretraining",
+        cfg = load_config(f"{args.backbone}_pretraining",
                           overrides=[f"opt.batch_size={BATCH}"])
         host = random_batch(cfg, BATCH, n_points=1024, n_views=5, seed=0)
     batch = batch_to(host, dev)
@@ -120,7 +123,8 @@ def main():
     self_dev = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
     ranges = ("step/forward", "predictor/frozen_vae", "predictor/sparseunet",
-              "step/render", "step/backward", "step/optimizer")
+              "point_ops/fps", "step/render", "step/backward",
+              "step/optimizer")
     for name in ranges:
         e = [x for x in events if x.key == name]
         if e:

@@ -1,14 +1,19 @@
 """Gaussian-splat predictor: backbone -> per-point Gaussians.
 
 Port of unipre3d_tpu/models/gaussian_predictor.py, object level (the
-transformer backbone with the object feature fusion) and scene level (the
-SparseUNet with PointFusion). The backbone emits 23 channels per point
-token, split ``[3, 1, 3, 4, 3, 9]`` into xyz offset / opacity / scale /
-rotation / SH-DC / SH-rest and activated into a renderable dict:
+transformer, PointMLP, Mamba3D and PCM backbones with the object feature
+fusion) and scene level (the SparseUNet with PointFusion). The backbone
+emits 23 channels per point token, split ``[3, 1, 3, 4, 3, 9]`` into xyz
+offset / opacity / scale / rotation / SH-DC / SH-rest and activated into a
+renderable dict:
 
 * position ``tanh(x) * offset_scale + center``; opacity ``sigmoid``;
 * scale ``exp(clamp(x, -1, 20))``; rotation an L2-normalized quaternion
   with a safe norm (``sqrt(sum x^2 + 1e-12)``, floored at 1e-6).
+
+Mamba3D hands the head its learned CLS positional embedding ``[B, 1, C]``
+as the centre (the reference's quirk, models/mamba3d.py): its first 3
+channels are broadcast as every gaussian's centre.
 
 The VAE's ``decoder_block_3`` map is group-normalized (parameter-free,
 stop-gradient) over the whole map. At object level the trainable
@@ -28,7 +33,9 @@ affine to the float32 map, as the JAX package does
 (gaussian_predictor.py:258-313). ``activate`` casts the 23 channels to
 float32, so the gaussians, the renderer and every kernel stay float32.
 
-The other object backbones are a later slice (ROADMAP.md, queue A).
+The JAX package reads no ``backbone_overrides`` for PointMLP, Mamba3D and
+PCM and builds them at full width; the port raises if it is given any for
+them rather than ignoring them.
 """
 
 from __future__ import annotations
@@ -42,6 +49,9 @@ from torch.nn import functional as F
 from torch.profiler import record_function
 
 from unipre3d_tpu_torch.models.layers import F32, Dense
+from unipre3d_tpu_torch.models.mamba3d import Mamba3DEncoder
+from unipre3d_tpu_torch.models.pcm import PointMambaSeg
+from unipre3d_tpu_torch.models.pointmlp import PointMLPEncoder
 from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
@@ -49,9 +59,14 @@ from unipre3d_tpu_torch.utils.camera import intrinsics_from_fov
 
 # feature_dim/fusion_dim of the backbones the port has
 MODEL_CONFIGS = {
+    "pointmlp": {"feature_dim": 128, "fusion_dim": 128, "final_dim": 128},
     "transformer": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
+    "pcm": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
+    "mamba3d": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
     "sparseunet": {"feature_dim": 128, "fusion_dim": 32, "final_dim": 32},
 }
+# the object backbones built at full width whatever the overrides (JAX's)
+FIXED_WIDTH = ("pointmlp", "mamba3d", "pcm")
 VAE_FIRST_BLOCK_CHANNELS = 128
 
 
@@ -135,20 +150,33 @@ class PointFeaturePredictor(nn.Module):
     def __init__(self, backbone_type: str, in_channels: int = 3,
                  backbone_overrides=None, dtype: torch.dtype = F32):
         super().__init__()
+        if backbone_type in FIXED_WIDTH and backbone_overrides:
+            raise ValueError(
+                f"backbone {backbone_type!r} takes no backbone_overrides "
+                f"(the JAX package builds it at full width), got "
+                f"{dict(backbone_overrides)}")
         if backbone_type == "transformer":
             kw = dict(in_channels=in_channels, num_groups=128,
                       encoder_dims=384, depth=16)
             kw.update(backbone_overrides or {})
             self.encoder = PointTransformerEncoder(**kw, dtype=dtype)
             self.final = FinalHead(384, 128, dtype=dtype)
+        elif backbone_type == "pointmlp":
+            self.encoder = PointMLPEncoder(in_channels=in_channels,
+                                           dtype=dtype)
+            self.final = FinalHead(128, 64, dtype=dtype)
+        elif backbone_type == "mamba3d":
+            self.encoder = Mamba3DEncoder(dtype=dtype)
+            self.final = FinalHead(384, 128, dtype=dtype)
+        elif backbone_type == "pcm":
+            self.encoder = PointMambaSeg(in_channels=in_channels, dtype=dtype)
+            self.final = FinalHead(128, 64, dtype=dtype)
         elif backbone_type == "sparseunet":
             self.encoder = SpUNet(in_channels=6, num_classes=64,
                                   **(backbone_overrides or {}), dtype=dtype)
             self.final = FinalHead(64, 32, dtype=dtype)
         else:
-            raise NotImplementedError(
-                f"backbone {backbone_type!r} is not ported yet (ROADMAP.md "
-                f"queue A, slice 2: the other object backbones)")
+            raise ValueError(f"unsupported backbone: {backbone_type!r}")
 
     def forward(self, x, image_features=None, c2w=None, fusion_mlp=None,
                 intrinsic=None, image_proj=None, generator=None):
@@ -296,11 +324,13 @@ class GaussianSplatPredictor(nn.Module):
         return d
 
     def activate(self, out, center) -> Dict[str, torch.Tensor]:
-        """23 channels [B, N, 23] + centers [B, N, 3] -> Gaussian dict."""
+        """23 channels [B, N, 23] + centres [B, N, 3+] (or Mamba3D's [B, 1,
+        C], broadcast over the N tokens) -> Gaussian dict."""
         out = out.float()
         xyz_raw, opacity, scaling, rotation, f_dc, *rest = torch.split(
             out, self.split_dims, dim=-1)
-        pos = torch.tanh(xyz_raw) * self.offset_scale + center.float()[..., :3]
+        pos = torch.tanh(xyz_raw) * self.offset_scale \
+            + center.float()[..., :3].expand_as(xyz_raw)
         if self.isotropic:
             scaling = scaling[..., :1].expand_as(scaling)
         rot_norm = torch.sqrt((rotation ** 2).sum(-1, keepdim=True) + 1e-12)

@@ -1,9 +1,10 @@
 """Building blocks of the point backbone.
 
 Port of unipre3d_tpu/models/layers.py: ``Mlp``, ``Attention``, ``DropPath``,
-``Block`` (pre-LN) and ``PointGroupEncoder`` (mini-PointNet). Module and
-attribute names follow the flax parameter paths so that weights convert by
-rule (unipre3d_tpu_torch/weights.py). Three flax conventions are kept:
+``Block`` (pre-LN) and ``PointGroupEncoder`` (mini-PointNet), with flax's
+``RMSNorm`` beside them. Module and attribute names follow the flax
+parameter paths so that weights convert by rule
+(unipre3d_tpu_torch/weights.py). Three flax conventions are kept:
 
 * LayerNorm eps is 1e-6 (torch's default is 1e-5);
 * BatchNorm (``FlaxBatchNorm``) normalizes by the biased batch variance and
@@ -62,6 +63,23 @@ class LayerNorm(nn.LayerNorm):
     def forward(self, x):
         return F.layer_norm(x.float(), self.normalized_shape, self.weight,
                             self.bias, self.eps).to(self.dtype)
+
+
+class RMSNorm(nn.Module):
+    """flax ``nn.RMSNorm(epsilon=, dtype=)``: x * (rsqrt(mean(x^2) + eps) *
+    scale) in float32, the output in ``dtype``."""
+
+    def __init__(self, dim: int, eps: float = 1e-6,
+                 dtype: torch.dtype = F32):
+        super().__init__()
+        self.eps, self.dtype = eps, dtype
+        self.weight = nn.Parameter(torch.ones(dim))
+
+    def forward(self, x):
+        x = x.float()
+        mul = torch.rsqrt((x * x).mean(-1, keepdim=True) + self.eps) \
+            * self.weight
+        return (x * mul).to(self.dtype)
 
 
 class Mlp(nn.Module):

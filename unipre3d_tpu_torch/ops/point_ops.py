@@ -1,17 +1,22 @@
-"""Batched point-cloud primitives: FPS, kNN, ball query, grouping.
+"""Batched point-cloud primitives: FPS, kNN, ball query, grouping,
+three-NN interpolation.
 
 Port of unipre3d_tpu/ops/point_ops.py (``square_distance``,
 ``furthest_point_sample``, ``knn``, ``ball_query``, ``index_points``,
-``group_points``, ``subsample_group``) with the same pointnet2-CUDA
-semantics:
+``group_points``, ``three_nn``, ``three_interpolate``,
+``subsample_group``) with the same pointnet2-CUDA semantics:
 
 * FPS seeds with index 0 and picks the point maximizing the min-distance to
   the selected set; ties go to the first index. Distances are formed as
   ``|x|^2 - 2 x.last + |last|^2`` exactly as the JAX version does, since a
   near-tie that flips one centre changes everything downstream.
+* FPS, kNN and ``three_nn`` take every channel of their points: PointMLP
+  groups over 4 channels, the gravity channel included;
 * ``ball_query`` returns the first ``nsample`` in-radius indices in point
   order (strict ``d2 < r^2``), padding with the first one found; a centre
-  with no neighbour gets index 0.
+  with no neighbour gets index 0;
+* ``three_interpolate`` weighs the 3 nearest points by 1/(d + 1e-8) on the
+  *squared* distances ``knn`` returns, as the JAX version does.
 
 FPS is a plain loop of tensor ops over the samples.
 """
@@ -19,6 +24,7 @@ FPS is a plain loop of tensor ops over the samples.
 from __future__ import annotations
 
 import torch
+from torch.profiler import record_function
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -29,21 +35,24 @@ def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
 
 
 def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
-    """Iterative farthest point sampling: xyz [B, N, 3] -> [B, npoint]
-    int64 indices; the first index is always 0."""
-    B, N, _ = xyz.shape
-    xyz = xyz.float()
-    sq_norm = (xyz * xyz).sum(-1)                                   # [B, N]
-    min_dist = torch.full((B, N), 1e10, device=xyz.device)
-    idx = torch.zeros(B, npoint, dtype=torch.long, device=xyz.device)
-    last = torch.zeros(B, dtype=torch.long, device=xyz.device)
-    for i in range(1, npoint):
-        p = torch.gather(xyz, 1, last[:, None, None].expand(B, 1, 3))  # [B,1,3]
-        p_sq = torch.gather(sq_norm, 1, last[:, None])                 # [B,1]
-        d = sq_norm - 2.0 * torch.einsum("bnc,bmc->bn", xyz, p) + p_sq
-        min_dist = torch.minimum(min_dist, d)
-        last = torch.argmax(min_dist, dim=-1)
-        idx[:, i] = last
+    """Iterative farthest point sampling: xyz [B, N, C] (any C) ->
+    [B, npoint] int64 indices; the first index is always 0."""
+    B, N, C = xyz.shape
+    # the named range labels a torch.profiler trace of the step
+    # (tools/profile_torch_step.py)
+    with record_function("point_ops/fps"):
+        xyz = xyz.float()
+        sq_norm = (xyz * xyz).sum(-1)                               # [B, N]
+        min_dist = torch.full((B, N), 1e10, device=xyz.device)
+        idx = torch.zeros(B, npoint, dtype=torch.long, device=xyz.device)
+        last = torch.zeros(B, dtype=torch.long, device=xyz.device)
+        for i in range(1, npoint):
+            p = torch.gather(xyz, 1, last[:, None, None].expand(B, 1, C))
+            p_sq = torch.gather(sq_norm, 1, last[:, None])             # [B,1]
+            d = sq_norm - 2.0 * torch.einsum("bnc,bmc->bn", xyz, p) + p_sq
+            min_dist = torch.minimum(min_dist, d)
+            last = torch.argmax(min_dist, dim=-1)
+            idx[:, i] = last
     return idx
 
 
@@ -84,6 +93,21 @@ def index_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
 def group_points(points: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     """points [B, N, C], idx [B, M, K] -> [B, M, K, C]."""
     return index_points(points, idx)
+
+
+def three_nn(query: torch.Tensor, support: torch.Tensor):
+    """The 3 nearest support points of each query: -> (squared distances
+    [B, M, 3], idx [B, M, 3])."""
+    return knn(query, support, 3)
+
+
+def three_interpolate(features: torch.Tensor, idx: torch.Tensor,
+                      dists: torch.Tensor) -> torch.Tensor:
+    """Inverse-distance weighted interpolation: features [B, N, C], idx and
+    dists [B, M, 3] -> [B, M, C]; weights 1/(d + 1e-8), normalized."""
+    w = 1.0 / (dists + 1e-8)
+    w = w / w.sum(-1, keepdim=True)
+    return (index_points(features, idx) * w[..., None]).sum(2)
 
 
 def subsample_group(pts: torch.Tensor, num_groups: int, group_size: int,

@@ -230,7 +230,8 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
     """Random init with flax's defaults: Dense/Conv kernels lecun-normal
     (truncated normal, variance 1/fan_in), biases 0, norms (1, 0), the CLS
     token 0 and the CLS position N(0, 1); sparse-conv kernels
-    truncated-normal(0.02). Draws come from ``generator``."""
+    truncated-normal(0.02); then each module's own ``flax_init``, where it
+    has one. Draws come from ``generator``."""
     with torch.no_grad():
         for name, mod in model.named_modules():
             if isinstance(mod, SparseKernel):
@@ -247,6 +248,11 @@ def init_like_flax(model: nn.Module, generator: torch.Generator) -> None:
         for name, p in model.named_parameters():
             if name.endswith("cls_pos"):
                 p.copy_(torch.randn(p.shape, generator=generator))
+        # modules whose flax initializers differ (the scan's parameters,
+        # Mamba3D's CLS embeddings, PCM's prompt table) draw last
+        for mod in model.modules():
+            if hasattr(mod, "flax_init"):
+                mod.flax_init(generator)
 
 
 @dataclass

@@ -5,9 +5,13 @@ nested dicts of numpy arrays, into a ``state_dict`` of
 ``GaussianSplatPredictor`` so both packages can run on the same weights:
 
 * a path ``a/b/c/leaf`` becomes ``a.b.c.<name>``: ``kernel`` and ``scale``
-  -> ``weight``, ``bias`` stays, batch-stat ``mean``/``var`` ->
-  ``running_mean``/``running_var``, other leaves (``cls_token``,
-  ``cls_pos``) keep their name;
+  (LayerNorm, RMSNorm) -> ``weight``, ``bias`` stays, batch-stat
+  ``mean``/``var`` -> ``running_mean``/``running_var``, other leaves keep
+  their name and layout (``cls_token``, ``cls_pos``, the Mamba mixer's
+  ``conv_weight [K, D]``, ``conv_bias``, ``A_log``, ``D``, ``dt_bias``,
+  the groupers' and LNP's ``affine_*``, PCM's ``order_prompt``). Modules
+  under ``nn.remat`` (PCM's ``PCMStage``, ``MambaBlock``) keep their given
+  names in the tree, so they resolve like any other;
 * a Dense kernel ``[in, out]`` becomes a Linear weight ``[out, in]``; a
   Conv kernel HWIO becomes OIHW;
 * the SD-VAE subtree (``image_network``) takes diffusers' module names
