@@ -28,8 +28,14 @@ Phases, all of them, in order; any failure exits non-zero:
    dense splat also at PointMLP's and PCM's main-path shape (128 renders of
    1,024 gaussians, two 512-chunks), bit for bit and timed; the
    selective-scan pair (Mamba3D and PCM) at Mamba3D's shape, PCM's first
-   and deepest stages and two edge cases, the output and every input's
-   gradient against the plain recurrence, timed.
+   and deepest stages, the first two also at the mixer's bf16 dtypes and
+   strided views (read in place, each gradient in its input's dtype), and
+   edge cases (L = 1, L = 37, L one step either side of a backward segment,
+   a forward tile and two tiles, at a masked channel edge), the output and
+   every input's gradient against the plain recurrence, two backward
+   launches bit for bit, timed; and the kernel launches of one default-run
+   SSMBranch forward + backward and of its scan call (which must be the
+   pair's three: no copy or cast around them).
 4. train: the default run (bfloat16 compute dtype, the VAE feature cache)
    on synthetic data through ``unipre3d_tpu_torch.train_network``, each
    under its own output directory: six full-width
@@ -425,11 +431,12 @@ def phase_kernels(device):
     return results
 
 
-# the selective scan's operations per (b, t, d, n) state lane, counted from
-# csrc/selective_scan.cu: (float32 ops, special-function ops). Forward: dt A,
-# the decay-and-add (2 FMA), C h and its share of the shuffle sum; exp.
-# Backward, what the function needs: the state recomputed once (dt A, 2 FMA)
-# and the gradient terms (dh, d exp, dA, ddt, du, dB, dC: ~16); exp.
+# the selective scan's operations per (b, t, d, n) state lane, what the
+# function needs (the first kernels' count, kept so that the bound stays
+# the yardstick): (float32 ops, special-function ops). Forward: dt A,
+# the decay-and-add (2 FMA), C h and its sum; exp. Backward: the state
+# recomputed once (dt A, 2 FMA) and the gradient terms (dh, d exp, dA, ddt,
+# du, dB, dC: ~16); exp.
 SCAN_FWD_OPS = (6, 1)
 SCAN_BWD_OPS = (22, 1)
 TOL_SCAN_FWD = 1e-5   # max |err| over max |y|
@@ -452,73 +459,209 @@ def scan_case(Bsz, L, D, seed, device):
     return [t.to(device) for t in ins]
 
 
+def mixer_layout(ins):
+    """The scan inputs as the default run's mixer hands them over
+    (models/mamba_mixer.py): u float32; delta bfloat16 (dt_proj's output);
+    B and C bfloat16 views of one [Bsz, L, dt_rank + 32] tensor (x_proj's
+    output, dt_rank = ceil(d_model / 16), d_model = D / 2); z a bfloat16
+    view of one [Bsz, L, 2 D] tensor (in_proj's output, its second half)."""
+    import torch
+    u, delta, A, Bm, Cm, Dv, z, bias = ins
+    Bsz, L, D = u.shape
+    rank = -(-(D // 2) // 16)
+    xp = torch.randn(Bsz, L, rank + 2 * Bm.shape[-1], device=u.device)
+    xp[..., rank:rank + Bm.shape[-1]] = Bm
+    xp[..., rank + Bm.shape[-1]:] = Cm
+    xp = xp.to(torch.bfloat16)
+    zx = torch.cat([u, z], -1).to(torch.bfloat16)
+    n = Bm.shape[-1]
+    return [u, delta.to(torch.bfloat16), A, xp[..., rank:rank + n],
+            xp[..., rank + n:], Dv, zx[..., D:], bias]
+
+
+def grad_err(k, r):
+    """max |k - r| beyond half an ulp of k's own dtype (the rounding of a
+    float32 gradient into a bfloat16 input's dtype, exact as
+    .to(torch.bfloat16); 0 for float32), over max |r|."""
+    import torch
+    diff = (k.float() - r.float()).abs()
+    if k.dtype == torch.bfloat16:
+        _, ex = torch.frexp(k.float())
+        half_ulp = torch.ldexp(torch.ones_like(diff), ex - 9)
+        diff = (diff - torch.where(k == 0, 0.0, half_ulp)).clamp_min(0.0)
+    return float(diff.max() / (r.float().abs().max() + 1e-30))
+
+
+def scan_bound(Bsz, L, D, x_bytes=4):
+    """(forward, backward) least times, (ms, what sets it), of the scan at
+    one shape: forward u, delta, z in, y out, B, C in; backward u, delta,
+    z, dy in, du, ddelta, dz out, B, C in, dB, dC out; u, y, dy, du
+    float32, delta, z, B, C and their gradients of ``x_bytes``; and
+    SCAN_FWD_OPS / SCAN_BWD_OPS a state lane."""
+    from unipre3d_tpu_torch.ops.scan import SCAN_N
+    bld, bln = Bsz * L * D, Bsz * L * SCAN_N
+    lanes = Bsz * L * D * SCAN_N
+    small = (D * SCAN_N + 3 * D) * 4
+    fwd = bound(bld * (8 + 2 * x_bytes) + 2 * bln * x_bytes + small, lanes,
+                SCAN_FWD_OPS)
+    bwd = bound(bld * (12 + 4 * x_bytes) + 4 * bln * x_bytes + 2 * small,
+                lanes, SCAN_BWD_OPS)
+    return fwd, bwd
+
+
+def scan_launches(device):
+    """Kernel launches on the card (torch.profiler) of one default-run
+    ``SSMBranch`` forward + backward at Mamba3D's shape (bfloat16, batch 32,
+    129 tokens, d_inner 768), and of its ``selective_scan`` call alone
+    (forward + gradients of its inputs as the branch hands them over) ->
+    {"branch": n, "scan": n, "scan_kernels": names}."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    from unipre3d_tpu_torch.models.mamba_mixer import SSMBranch
+    from unipre3d_tpu_torch.ops import scan as sc
+    g = torch.Generator().manual_seed(7)
+    branch = SSMBranch(768, dt_rank=24, dtype=torch.bfloat16)
+    with torch.no_grad():
+        for prm in branch.parameters():
+            prm.copy_(0.1 * torch.randn(prm.shape, generator=g))
+    branch = branch.to(device)
+    xz = torch.randn(32, 129, 1536, generator=g).to(device, torch.bfloat16)
+    xz.requires_grad_(True)
+    dy = torch.randn(32, 129, 768, generator=g).to(device)
+    seen = {}
+    real = sc.selective_scan
+
+    def hook(*a, **kw):  # the branch's own scan inputs, kept as leaves
+        seen["args"] = [t.detach().requires_grad_(True) if torch.is_tensor(t)
+                        and t.is_floating_point() else t for t in a]
+        seen["kw"] = {k: t.detach().requires_grad_(True)
+                      if torch.is_tensor(t) else t for k, t in kw.items()}
+        return real(*a, **kw)
+
+    def launches(fn):
+        fn()  # warm-up (builds and loads the kernels)
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            fn()
+            torch.cuda.synchronize()
+        kern = [e for e in prof.events()
+                if e.device_type == torch.autograd.DeviceType.CUDA]
+        return len(kern), sorted({e.name for e in kern})
+
+    def run_branch():
+        y = branch(xz[..., :768], xz[..., 768:])
+        torch.autograd.grad(y, [xz] + list(branch.parameters()), dy)
+
+    from unipre3d_tpu_torch.models import mamba_mixer
+    mamba_mixer.selective_scan = hook
+    try:
+        n_branch, _ = launches(run_branch)
+    finally:
+        mamba_mixer.selective_scan = real
+    args, kw = seen["args"], seen["kw"]
+    leaves = [t for t in list(args) + list(kw.values())
+              if torch.is_tensor(t) and t.requires_grad]
+
+    def run_scan():
+        torch.autograd.grad(real(*args, **kw), leaves, dy)
+
+    n_scan, names = launches(run_scan)
+    return {"branch": n_branch, "scan": n_scan, "scan_kernels": names}
+
+
 def phase_scan_kernels(device):
-    """The selective-scan pair against its plain version on the card at
-    Mamba3D's shape, PCM's stage 0 and deepest stage, and two edge cases
-    (L = 1; L = 37, which neither the forward's 8-step groups nor the
-    backward's 16-step segments divide): the output to TOL_SCAN_FWD and
-    every input's gradient to TOL_SCAN_GRAD. Times both kernels and both
-    plain versions at each main-path shape (CUDA events)."""
+    """The selective-scan pair against its plain version on the card: at
+    Mamba3D's shape, PCM's stage 0 and deepest stage, the first two also at
+    the mixer's dtypes and strides (``mixer_layout``; the plain version on
+    float32 copies of the same values), and edge cases: L = 1, L = 37
+    (which no segment or tile divides), L one step either side of a
+    backward segment (8 steps), a forward tile (16) and two tiles, at D =
+    96 (a backward CTA and a half: its channel edge masked). The output
+    to TOL_SCAN_FWD and every input's gradient to TOL_SCAN_GRAD
+    (``grad_err``: beyond the rounding into a bfloat16 input's dtype), and
+    two backward launches on the same inputs must give the same bits. Times
+    both kernels and both plain versions at each main-path shape (CUDA
+    events), and counts the launches of one default-run SSMBranch forward +
+    backward and of its scan call (``scan_launches``)."""
     import torch
     from unipre3d_tpu_torch.ops import scan as sc
-    shapes = [("Mamba3D", 32, 129, 768), ("PCM stage 0", 32, 524, 768),
-              ("PCM stage 3", 32, 76, 1536), ("edge L=1", 4, 1, 768),
-              ("edge L=37", 3, 37, 1536)]
+    shapes = [("Mamba3D", 32, 129, 768, False),
+              ("PCM stage 0", 32, 524, 768, False),
+              ("PCM stage 3", 32, 76, 1536, False),
+              ("Mamba3D mixer dtypes", 32, 129, 768, True),
+              ("PCM stage 0 mixer dtypes", 32, 524, 768, True),
+              ("edge L=1", 4, 1, 768, False), ("edge L=37", 3, 37, 1536, False)]
+    shapes += [(f"tile edge L={L}", 2, L, 96, mixer)
+               for L in (7, 9, 15, 17, 31, 33) for mixer in (False, True)]
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
-    for si, (label, Bsz, L, D) in enumerate(shapes):
+    for si, (label, Bsz, L, D, mixer) in enumerate(shapes):
         ins = scan_case(Bsz, L, D, si, device)
+        if mixer:
+            ins = mixer_layout(ins)
         g = torch.randn(ins[0].shape, device=device,
                         generator=torch.Generator(device).manual_seed(si))
-        y = sc.scan_fwd(*ins, True)
-        grads = sc.scan_bwd(*ins, True, g)
-        leaves = [t.clone().requires_grad_(True) for t in ins]
+        y, chk = sc.scan_fwd(*ins, True, keep_states=True)
+        grads = sc.scan_bwd(*ins, True, g, chk)
+        again = sc.scan_bwd(*ins, True, g, chk)
+        leaves = [t.float().clone().requires_grad_(True) for t in ins]
         y_r = sc.selective_scan_ref(*leaves, delta_softplus=True)
         grads_r = torch.autograd.grad(y_r, leaves, g)
         torch.cuda.synchronize()
         y_r = y_r.detach()
+        same = all(torch.equal(a, b) for a, b in zip(grads, again))
+        dtypes_ok = all(a.dtype == t.dtype for a, t in zip(grads, ins))
         err_y = float((y - y_r).abs().max() / y_r.abs().max())
-        errs = [float((a - b).abs().max() / (b.abs().max() + 1e-30))
-                for a, b in zip(grads, grads_r)]
+        errs = [grad_err(a, b) for a, b in zip(grads, grads_r)]
         ok = bool(torch.isfinite(y_r).all()) and err_y <= TOL_SCAN_FWD and \
-            max(errs) <= TOL_SCAN_GRAD
+            max(errs) <= TOL_SCAN_GRAD and same and dtypes_ok
         log(f"[kernels] selective scan {label} B={Bsz} L={L} D={D}: fwd "
             f"max|err|/max|y| {err_y:.2e} (tol {TOL_SCAN_FWD:g}); bwd max "
             f"rel err {max(errs):.2e} (u, delta, A, B, C, D, z, bias: "
             f"{', '.join(f'{e:.1e}' for e in errs)}; tol "
-            f"{TOL_SCAN_GRAD:g})")
+            f"{TOL_SCAN_GRAD:g}); two backward launches bit-identical "
+            f"{same}; gradient dtypes "
+            f"{[str(a.dtype).split('.')[-1] for a in grads]}")
         if not ok:
             raise AssertionError(f"the selective-scan kernels disagree with "
                                  f"their plain version at {label}")
         results["fwd_err"] = max(results["fwd_err"],
                                  float((y - y_r).abs().max()))
         results["bwd_err"] = max(results["bwd_err"], max(
-            float((a - b).abs().max()) for a, b in zip(grads, grads_r)))
-        if si < 3:
-            ms_f = cuda_ms(lambda: sc.scan_fwd(*ins, True), 20)
-            ms_b = cuda_ms(lambda: sc.scan_bwd(*ins, True, g), 20)
+            float((a.float() - b).abs().max()) for a, b in zip(grads, grads_r)))
+        if si < 5:
+            ms_f = cuda_ms(lambda: sc.scan_fwd(*ins, True, keep_states=True),
+                           20)
+            ms_f0 = cuda_ms(lambda: sc.scan_fwd(*ins, True), 20)
+            ms_b = cuda_ms(lambda: sc.scan_bwd(*ins, True, g, chk), 20)
             pms_f = cuda_ms(lambda: sc.selective_scan_ref(
-                *ins, delta_softplus=True), 2)
+                *leaves, delta_softplus=True), 2)
             y_r = sc.selective_scan_ref(*leaves, delta_softplus=True)
             pms_b = cuda_ms(lambda: torch.autograd.grad(
                 y_r, leaves, g, retain_graph=True), 2)
-            bld, bln = Bsz * L * D * 4, Bsz * L * sc.SCAN_N * 4
-            lanes = Bsz * L * D * sc.SCAN_N
-            small = (D * sc.SCAN_N + 3 * D) * 4
-            # forward: u, delta, z in, y out; B, C in. Backward: u, delta,
-            # z, dy in, du, ddelta, dz out; B, C in, dB, dC out
-            bf, byf = bound(4 * bld + 2 * bln + small, lanes, SCAN_FWD_OPS)
-            bb, byb = bound(7 * bld + 4 * bln + 2 * small, lanes,
-                            SCAN_BWD_OPS)
-            log(f"[kernels] selective scan {label}: fwd {ms_f:.4f} ms (plain "
-                f"{pms_f:.3f}, bound {bf:.4f} by {byf}); bwd {ms_b:.4f} ms "
-                f"(plain {pms_b:.3f}, bound {bb:.4f} by {byb})")
-            if si == 0:   # Mamba3D's: the kernels line
+            (bf, byf), (bb, byb) = scan_bound(
+                Bsz, L, D, x_bytes=2 if mixer else 4)
+            log(f"[kernels] selective scan {label}: fwd {ms_f:.4f} ms "
+                f"keeping the states for the backward, {ms_f0:.4f} without "
+                f"(plain {pms_f:.3f}, bound {bf:.4f} by {byf}); bwd "
+                f"{ms_b:.4f} ms (plain {pms_b:.3f}, bound {bb:.4f} by {byb});"
+                f" states kept {chk.numel() * 4 / 1e6:.1f} MB")
+            if si == 0:   # Mamba3D's, float32: the kernels line
                 results["fwd"] = dict(ms=ms_f, plain_ms=pms_f, bound_ms=bf,
                                       bound_by=byf)
                 results["bwd"] = dict(ms=ms_b, plain_ms=pms_b, bound_ms=bb,
                                       bound_by=byb)
-        del ins, g, y, grads, leaves, y_r, grads_r
+        del ins, g, y, chk, grads, again, leaves, y_r, grads_r
         torch.cuda.empty_cache()
+    counts = scan_launches(device)
+    log(f"[kernels] launches of one default-run SSMBranch forward + backward "
+        f"at Mamba3D's shape: {counts['branch']}; of its selective_scan "
+        f"call alone (forward + gradients): {counts['scan']} "
+        f"({', '.join(counts['scan_kernels'])})")
+    if counts["scan"] != 3:
+        raise AssertionError(f"the mixer's scan call launched "
+                             f"{counts['scan']} kernels, not its 3 (forward,"
+                             f" backward walk, sums): a copy or cast crept "
+                             f"in")
     return results
 
 

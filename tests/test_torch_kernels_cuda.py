@@ -13,7 +13,10 @@ arithmetic: their log T is held bit for bit, and so are the dense kernels'
 T and images at the edges of their per-tile cull.
 The selective-scan pair: the forward within 1e-5 of max |y| and each
 gradient within 1e-4 relative to its largest entry (sums over D, or over
-batch and time, in another order than autograd's).
+batch and time, in another order than autograd's); at the mixer's bf16
+strided operands, each gradient in its input's dtype and held beyond its
+rounding into bf16 (half an ulp), and the backward bit for bit across two
+launches.
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -574,3 +577,83 @@ def test_scan_kernels_match_plain_version(cuda, Bsz, L, D, full, softplus):
     assert rel_err(y_r.detach(), y.detach()) < 1e-5
     for a, b in zip(grads_r, grads):
         assert rel_err(a, b) < 1e-4
+
+
+def beyond_rounding_err(ref, got):
+    """max |got - ref| beyond half an ulp of got's dtype (a bfloat16
+    gradient is the float32 one rounded as .to(torch.bfloat16)), over
+    max |ref|."""
+    diff = (got.float() - ref.float()).abs()
+    if got.dtype == torch.bfloat16:
+        _, ex = torch.frexp(got.float())
+        half_ulp = torch.where(got == 0, 0.0, torch.ldexp(
+            torch.ones_like(diff), ex - 9))
+        diff = (diff - half_ulp).clamp_min(0.0)
+    return float(diff.max() / (ref.float().abs().max() + 1e-12))
+
+
+def mixer_layout(ins, rank):
+    """The default run's layout of the mixer's scan inputs: u float32;
+    delta bfloat16; B, C bfloat16 views of one [Bsz, L, rank + 32] tensor
+    (x_proj's output); z a bfloat16 view of one [Bsz, L, 2 D] tensor
+    (in_proj's output)."""
+    u, delta, A, Bm, Cm, Dv, z, bias = ins
+    n = sc.SCAN_N
+    xp = torch.cat([torch.randn(*u.shape[:2], rank, device=u.device), Bm, Cm],
+                   -1).to(torch.bfloat16)
+    zx = torch.cat([u, z], -1).to(torch.bfloat16)
+    return [u, delta.to(torch.bfloat16), A, xp[..., rank:rank + n],
+            xp[..., rank + n:], Dv, zx[..., u.shape[-1]:], bias]
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("Bsz,L,D,layout", [
+    (2, 7, 96, "float32"), (2, 9, 96, "mixer"), (2, 15, 96, "float32"),
+    (2, 17, 96, "float32"), (2, 31, 96, "mixer"), (2, 33, 96, "mixer"),
+    (3, 129, 64, "mixer"), (2, 40, 48, "mixer")])
+def test_scan_kernels_take_the_mixer_layout(cuda, Bsz, L, D, layout):
+    """L one step either side of a backward segment (8 steps), a forward
+    tile (16) and two tiles, D = 96 (a backward CTA of 64 channels and a
+    masked half), and the mixer's bf16 strided views:
+    read in place (no launch but the kernels'), each gradient in its
+    input's dtype, held to the plain version on float32 copies of the same
+    values at 1e-5 / 1e-4 beyond the rounding into bfloat16."""
+    ins = list(scan_inputs(Bsz, L, D, L + D, cuda, True))
+    if layout == "mixer":
+        ins = mixer_layout(ins, 24)
+        assert all(sc.in_place(t) for t in (ins[1], ins[3], ins[4], ins[6]))
+        assert not ins[3].is_contiguous() and not ins[6].is_contiguous()
+    ins = [t.detach().requires_grad_(True) for t in ins]
+    g = torch.randn(Bsz, L, D, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(1))
+    n0, n1 = sc.SCAN_FWD.launches, sc.SCAN_BWD.launches
+    y = sc.selective_scan(*ins, delta_softplus=True)
+    grads = torch.autograd.grad(y, ins, g)
+    assert (sc.SCAN_FWD.launches - n0, sc.SCAN_BWD.launches - n1) == (1, 1)
+    assert [a.dtype for a in grads] == [t.dtype for t in ins]
+    leaves = [t.detach().float().requires_grad_(True) for t in ins]
+    y_r = sc.selective_scan_ref(*leaves, delta_softplus=True)
+    grads_r = torch.autograd.grad(y_r, leaves, g)
+    torch.cuda.synchronize()
+    assert y.dtype == torch.float32
+    assert rel_err(y_r.detach(), y.detach()) < 1e-5
+    for a, b in zip(grads_r, grads):
+        assert beyond_rounding_err(a, b) < 1e-4
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["float32", "mixer"])
+def test_scan_backward_is_deterministic(cuda, layout):
+    """Two backward launches on the same inputs give the same bits: the
+    partial sums are reduced in a fixed order, without float atomics."""
+    ins = list(scan_inputs(4, 129, 768, 5, cuda, True))
+    if layout == "mixer":
+        ins = mixer_layout(ins, 24)
+    g = torch.randn(4, 129, 768, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(2))
+    _, chk = sc.scan_fwd(*ins, True, keep_states=True)
+    first = sc.scan_bwd(*ins, True, g, chk)
+    second = sc.scan_bwd(*ins, True, g, chk)
+    torch.cuda.synchronize()
+    for a, b in zip(first, second):
+        assert torch.equal(a, b)

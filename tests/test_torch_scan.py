@@ -22,6 +22,7 @@ import torch
 
 from unipre3d_tpu.models.mamba_mixer import MambaMixer as JMixer
 from unipre3d_tpu.ops import scan as jscan
+from unipre3d_tpu_torch.models import mamba_mixer
 from unipre3d_tpu_torch.models.mamba_mixer import MambaMixer
 from unipre3d_tpu_torch.ops import scan as tscan
 from unipre3d_tpu_torch.weights import jax_to_state_dict
@@ -130,3 +131,104 @@ def test_mamba_mixer(bimamba):
     assert set(jgrad) == {n for n, _ in tm.named_parameters()}
     for n, p in tm.named_parameters():
         assert rel_err(jgrad[n], p.grad.numpy()) < 1e-4, n
+
+
+@pytest.mark.parametrize("L", [1, 37, 150])
+def test_segmented_twin_matches_jax(L):
+    """The plain twin of the kernels' decomposition (the states kept every
+    SCAN_SEG steps, the backward segment by segment from them with e * dh
+    carried into the segment before, the sums over n as X and Y) against
+    JAX's selective_scan and autograd of selective_scan_ref: at L = 1, at
+    an L that no segment divides and at an L over several segments, every
+    gradient within 1e-4 and the kept states within 1e-5 of the walk's."""
+    ins = scan_inputs(2, L, 24, 16, L + 1)
+    cot = np.random.default_rng(2).normal(size=(2, L, 24)).astype(np.float32)
+
+    def jloss(*a):
+        return jnp.sum(jscan.selective_scan(*a, delta_softplus=True) * cot)
+
+    jg = jax.jit(jax.grad(jloss, argnums=tuple(range(8))))(
+        *[jnp.asarray(a) for a in ins])
+    tin = [torch.from_numpy(a) for a in ins]
+    dy = torch.from_numpy(cot)
+    chk = tscan.scan_states_ref(tin[0], tin[1], tin[2], tin[3], tin[7], True)
+    assert chk.shape == (2, -(-L // tscan.SCAN_SEG), 24, 16)
+    twin = tscan.scan_bwd_ref(*tin, True, dy, chk)
+    leaves = [t.clone().requires_grad_(True) for t in tin]
+    y = tscan.selective_scan_ref(*leaves, delta_softplus=True)
+    tg = torch.autograd.grad(y, leaves, dy)
+    for name, a, b, c in zip(NAMES, jg, tg, twin):
+        assert rel_err(a, c.numpy()) < 1e-4, name
+        assert rel_err(b.numpy(), c.numpy()) < 1e-4, name
+    # the kept states are the walk's: h before step s * SCAN_SEG
+    dt = tscan.softplus(tin[1] + tin[7])
+    h = torch.zeros(2, 24, 16)
+    for t in range(L):
+        if t % tscan.SCAN_SEG == 0:
+            assert rel_err(h.numpy(), chk[:, t // tscan.SCAN_SEG].numpy()) \
+                < 1e-5
+        h = torch.exp(dt[:, t, :, None] * tin[2]) * h \
+            + (dt[:, t] * tin[0][:, t])[..., None] * tin[3][:, t, None, :]
+
+
+def test_segmented_twin_keeps_each_gradient_in_its_inputs_dtype():
+    """bfloat16 delta, B, C, z (the mixer's): each gradient in its input's
+    dtype, within 1e-4 of autograd on float32 copies beyond the rounding
+    into bfloat16 (half an ulp)."""
+    ins = [torch.from_numpy(a) for a in scan_inputs(2, 40, 24, 16, 9)]
+    for i in (1, 3, 4, 6):
+        ins[i] = ins[i].to(torch.bfloat16)
+    dy = torch.from_numpy(np.random.default_rng(3).normal(
+        size=(2, 40, 24)).astype(np.float32))
+    chk = tscan.scan_states_ref(ins[0], ins[1], ins[2], ins[3], ins[7], True)
+    twin = tscan.scan_bwd_ref(*ins, True, dy, chk)
+    leaves = [t.float().requires_grad_(True) for t in ins]
+    ref = torch.autograd.grad(
+        tscan.selective_scan_ref(*leaves, delta_softplus=True), leaves, dy)
+    assert [g.dtype for g in twin] == [t.dtype for t in ins]
+    for name, a, b in zip(NAMES, ref, twin):
+        diff = (b.float() - a).abs()
+        if b.dtype == torch.bfloat16:
+            _, ex = torch.frexp(b.float())
+            diff = (diff - torch.ldexp(torch.ones_like(diff), ex - 9)).clamp(
+                min=0.0)
+        assert float(diff.max() / a.abs().max()) < 1e-4, name
+
+
+def test_mixer_hands_the_kernels_operands_they_read_in_place():
+    """The default run's mixer (bfloat16) at the CPU: every [B, L, W]
+    operand of its scan calls is one the kernels read as it is (the
+    wrapper's own predicate, ``in_place``: no copy or cast launch before
+    the kernel), B and C are views of x_proj's output and z of in_proj's
+    (row strides dt_rank + 32 and 2 d_inner), delta and z bfloat16, and A,
+    D, delta_bias float32 contiguous (no copy either)."""
+    mixer = MambaMixer(32, bimamba=True, dtype=torch.bfloat16)
+    seen = []
+    real = mamba_mixer.selective_scan
+
+    def hook(u, delta, A, B, C, D=None, z=None, delta_bias=None,
+             delta_softplus=False):
+        seen.append(dict(u=u, delta=delta, A=A, B=B, C=C, D=D, z=z,
+                         delta_bias=delta_bias))
+        return real(u, delta, A, B, C, D, z, delta_bias, delta_softplus)
+
+    x = torch.from_numpy(np.random.default_rng(4).normal(
+        size=(2, 20, 32)).astype(np.float32)).to(torch.bfloat16)
+    mamba_mixer.selective_scan = hook
+    try:
+        mixer(x).float().sum().backward()
+    finally:
+        mamba_mixer.selective_scan = real
+    assert len(seen) == 2  # the forward and the flipped direction
+    d_inner, rank = 64, mixer.fwd.dt_rank
+    for ops in seen:
+        for name in ("u", "delta", "B", "C", "z"):
+            assert tscan.in_place(ops[name]), name
+        assert ops["u"].dtype == torch.float32
+        assert {ops[n].dtype for n in ("delta", "B", "C", "z")} == {
+            torch.bfloat16}
+        assert ops["B"].stride(1) == ops["C"].stride(1) == rank + 32
+        for name in ("A", "D", "delta_bias"):
+            t = ops[name]
+            assert t.dtype == torch.float32 and t.is_contiguous(), name
+    assert seen[0]["z"].stride(1) == 2 * d_inner  # a view of in_proj's

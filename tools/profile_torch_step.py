@@ -16,7 +16,8 @@ steps with the host clock around synchronized steps and traces them with
 the device time of the step's named ranges (``step/forward``,
 ``predictor/frozen_vae``, ``predictor/sparseunet``, ``point_ops/fps``,
 ``step/render``, ``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
-time over wall time) and the top kernels by device time.
+time over wall time), the top kernels by device time and the port's
+hand-written kernels wherever they rank.
 TF32 is off unless ``--tf32`` (as in chip_smoke.py). The model computes in
 ``--dtype`` (default float32); with ``--cache`` each step takes the
 conditioning views' VAE features from the feature cache
@@ -140,8 +141,10 @@ def main():
     print(f"[profile] device busy {busy_ms / STEPS:.2f} ms/step of "
           f"{wall_ms / STEPS:.2f} ms wall: busy share "
           f"{busy_ms / wall_ms:.3f}")
-    top = sorted(kernels, key=self_dev, reverse=True)[:15]
-    for e in top:
+    ranked = sorted(kernels, key=self_dev, reverse=True)
+    # the top 15, and the port's own kernels wherever they rank
+    for e in ranked[:15] + [e for e in ranked[15:] if e.key.startswith(
+            "(anonymous namespace)::")]:
         print(f"[profile] kernel {self_dev(e) / 1e3 / STEPS:8.3f} "
               f"ms/step x{e.count // STEPS:4d}  {e.key[:90]}")
 
