@@ -61,7 +61,12 @@ Phases, all of them, in order; any failure exits non-zero:
    ``mamba3d_pretraining`` and ``pcm_pretraining`` with their val loop
    (the dense pair must launch on each path, the scan pair on Mamba3D's
    and PCM's, each backbone's first block must return bfloat16), with the
-   time of one forward's FPS calls beside the step's.
+   time of one forward's FPS calls beside the step's. Then three
+   full-width default-run ``ptv3_pretraining`` steps with their val loop
+   on each of the binned and auto routes (the binned pair must launch on
+   the first, the first PTv3Block must return bfloat16), with the geometry
+   build's time, each stage's valid rows and the parents each pooling
+   dropped past its capacity.
 5. test renders: the object orbit (80 frames) and the test views of a
    test example from the trained run's checkpoint, and the 16 test views of
    a full-width scene at 84,096 slots, through the streaming splat, each
@@ -76,7 +81,10 @@ Phases, all of them, in order; any failure exits non-zero:
    object eval step, card against CPU; one float32 step of each of the
    three backbones of slice 8 at full width, card against CPU (gradients
    against the CPU's own move under a 1e-6 perturbation where max-pool
-   ties make that larger than TOL_STEP_GRAD). The streaming backward, which no
+   ties make that larger than TOL_STEP_GRAD); one float32 step of a small
+   PTv3 (five narrow stages), card against CPU, held as the SparseUNet
+   scene step, with its ops (xCPE, patch attention along each order,
+   segment max, fusion merge) entry by entry. The streaming backward, which no
    training route runs, takes its launch count from the card-side call of
    the streaming splat with its gradients.
 
@@ -1144,6 +1152,19 @@ SMALL_SCENE_OVERRIDES = SCENE_ARGV[2:] + FLOAT32_PINS + [
     "layers: [1, 1, 1, 1, 1, 1, 1, 1], pixel_capacity: 512}"]
 
 
+PTV3_ARGV = ["--config-name", "ptv3_pretraining",
+             "data.pts_dataset_root=synthetic", "opt.batch_size=1"]
+# the small PTv3 of the parity phase: the small scene above with a narrow
+# five-stage PTv3 (head dim 16, as at full width), DropPath and the order
+# shuffle off (their draws differ between the card and the CPU)
+SMALL_PTV3_OVERRIDES = SMALL_SCENE_OVERRIDES[:-1] + [
+    "model.backbone_overrides={enc_channels: [32, 16, 16, 32, 32], "
+    "enc_num_head: [2, 1, 1, 2, 2], enc_depths: [2, 1, 1, 1, 1], "
+    "dec_channels: [16, 16, 16, 32], dec_num_head: [1, 1, 1, 2], "
+    "dec_depths: [2, 1, 1, 1], pixel_capacity: 512, drop_path: 0.0, "
+    "shuffle_orders: false}"]
+
+
 OBJECT_ARGV = ["--config-name", "transformer_pretraining",
                "data.dataset_root=synthetic"]
 OBJECT_STEPS = 6
@@ -1449,6 +1470,47 @@ def default_run_holds(device_line):
                              "float32 one's")
 
 
+def phase_train_ptv3(device_line, tmp):
+    """The default run (bfloat16, the VAE feature cache) of
+    ``ptv3_pretraining`` through ``train_network``: three full-width steps
+    with their val loop on each of the binned and auto (tiled renderer)
+    routes. The binned pair must launch on the binned path, the first
+    PTv3Block and VAE block return bfloat16, no step may have a non-finite
+    gradient norm or be skipped by the NaN skip. Prints each step's time,
+    the geometry build's, the peak memory, each stage's valid rows and the
+    parents each pooling dropped past its capacity. Returns the binned
+    path's launch counts."""
+    import torch
+    from unipre3d_tpu_torch.models import ptv3, vae
+    from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+    launches = {}
+    for route, counters in (
+            ("pallas_binned", {"binned_fwd": sb.BINNED_FWD,
+                               "binned_bwd": sb.BINNED_BWD}),
+            ("auto", {})):
+        kinds = {"PTv3Block": ptv3.PTv3Block,
+                 "VAE ResnetBlock2D": vae.ResnetBlock2D}
+        handle, dtypes = first_output_dtypes(kinds)
+        res, counts = run_train(
+            PTV3_ARGV + ["--output-dir", os.path.join(tmp, f"ptv3_{route}"),
+                         f"tpu.raster_impl_train={route}",
+                         "opt.iterations=3", "logging.loss_log=1"],
+            counters, device_line, f"ptv3 {route}")
+        handle.remove()
+        hold_dtypes(f"ptv3 {route}", dtypes, kinds, torch.bfloat16)
+        log(f"[train] ptv3 {route}: valid rows per stage {res['stage_rows']}"
+            f"; parents dropped past each pooling's capacity "
+            f"{res['pool_dropped']}; geometry ms "
+            f"{[round(t, 3) for t in res['geometry_ms']]}"
+            + (f"; each step's render: duplicates {res['dups']}, dropped by "
+               f"the budget {res['budget_dropped']}, past the per-tile cap "
+               f"{res['cap_dropped']}" if "dups" in res else "")
+            + f" on {device_line}")
+        if route == "pallas_binned":
+            launches = counts
+    return launches
+
+
 def phase_test_renders(device_line, tmp):
     """The test renders through the streaming splat: the object orbit (80
     frames) and the test views of the first test example, from the object
@@ -1721,11 +1783,52 @@ def sparse_ops_snapshot(geo, n_views, img_h, img_w, dev):
     return out
 
 
+def ptv3_ops_snapshot(geo, n_views, img_h, img_w, dev):
+    """Each op of the PTv3 backbone on ``dev`` over the geometry ``geo``:
+    the xCPE conv on the PointFusion-merged set, the patch attention along
+    each order of stage 0 (SDPA on the card), the pooling's segment max
+    over stage 0's clusters, and the fusion merge: outputs and the
+    gradients of a seeded random cotangent w.r.t. every input, on the CPU.
+    None takes a decision a rounding could flip (random inputs hold no
+    tied maxima), so card and CPU agree entry by entry."""
+    import torch
+    from unipre3d_tpu_torch.models.ptv3 import patch_attention
+    from unipre3d_tpu_torch.models.sparseunet import point_fusion_merge
+    from unipre3d_tpu_torch.ops import sparse as sp
+    gen = torch.Generator().manual_seed(7)
+    rnd = lambda *s: torch.randn(*s, generator=gen).to(dev)  # noqa: E731
+    B, M = geo.mask0.shape
+    Mf, C = geo.fine_mask.shape[1], 32
+    ser, cl = geo.sers[0], geo.clusters[0]
+    cases = {
+        "xcpe k3 merged": (lambda f, w: sp.subm_gather_matmul(
+            f, geo.nbr3_fine, w), [rnd(B, Mf, C), rnd(27, C, C)]),
+        "segment max": (lambda f: sp.segment_reduce(
+            f, cl.parent_idx, cl.mask.shape[1], "max"), [rnd(B, Mf, C)]),
+        "fusion merge": (lambda f, img: point_fusion_merge(f, img, geo),
+                         [rnd(B, M, C), rnd(B * n_views, C, img_h, img_w)]),
+    }
+    for o in range(ser.order.shape[1]):
+        cases[f"patch attention order {o}"] = (
+            lambda q, o=o: patch_attention(q, ser.order[:, o],
+                                           ser.inverse[:, o], geo.fine_mask,
+                                           2, 48), [rnd(B, Mf, 3 * C)])
+    out = {}
+    for name, (fn, ins) in cases.items():
+        ins = [t.detach().requires_grad_(True) for t in ins]
+        y = fn(*ins)
+        grads = torch.autograd.grad(y, ins, rnd(*y.shape))
+        out[f"{name} out"] = y.detach().cpu()
+        out.update({f"{name} d{k}": g.cpu() for k, g in enumerate(grads)})
+    return out
+
+
 def scene_snapshot(cfg, batch, dev):
     """The scene step's forward and backward on ``dev`` from seed-0
     weights, on the CPU: (loss, the geometry's index tensors, the predicted
     gaussian fields, the loss gradient w.r.t. each of them, the parameter
-    gradients, :func:`sparse_ops_snapshot` over the step's geometry)."""
+    gradients, :func:`sparse_ops_snapshot` (SparseUNet) or
+    :func:`ptv3_ops_snapshot` (PTv3) over the step's geometry)."""
     import torch
     from unipre3d_tpu_torch.data import batch_to
     from unipre3d_tpu_torch.training import trainer
@@ -1752,7 +1855,8 @@ def scene_snapshot(cfg, batch, dev):
             {k: g[k].grad.cpu() for k in GAUSSIAN_KEYS},
             {n: p.grad.cpu() for n, p in model.named_parameters()
              if p.grad is not None},
-            sparse_ops_snapshot(b["geometry"], V, H, W, dev))
+            (sparse_ops_snapshot if hasattr(b["geometry"], "downs") else
+             ptv3_ops_snapshot)(b["geometry"], V, H, W, dev))
 
 
 def rel_err(a, b):
@@ -1793,9 +1897,7 @@ def phase_parity():
     loss, gradient w.r.t. the predicted gaussians (the render path with
     both binned kernels), each SparseUNet/PointFusion op over the step's
     geometry entry by entry, and the parameter gradients in relative L2."""
-    import torch
-    from unipre3d_tpu_torch.data import (SyntheticSceneDataset, collate,
-                                         random_batch)
+    from unipre3d_tpu_torch.data import random_batch
     from unipre3d_tpu_torch.training.config import load_config
     cfg = load_config("transformer_pretraining", overrides=FLOAT32_PINS + [
         "data.training_resolution=32", "opt.batch_size=2",
@@ -1805,13 +1907,57 @@ def phase_parity():
     batch = random_batch(cfg, batch=2, n_points=256, n_views=3, seed=0)
     compare_steps("object", *(step_snapshot(cfg, batch, d)
                               for d in ("cpu", "cuda")))
-    cfg = load_config("sparseunet_pretraining",
-                      overrides=SMALL_SCENE_OVERRIDES)
+    hold_scene_step("scene", "sparseunet_pretraining",
+                    SMALL_SCENE_OVERRIDES, "SparseUNet/PointFusion ops")
+
+
+def scene_loss(cfg, batch, dtype):
+    """The scene step's loss on the CPU from seed-0 weights, the backbone
+    computing in ``dtype`` (the renderer stays float32)."""
+    import torch
+    from unipre3d_tpu_torch.data import batch_to
+    from unipre3d_tpu_torch.training import trainer
+    model, _ = trainer.create_train_state(cfg, device="cpu", seed=0,
+                                          dtype=dtype)
+    b = batch_to(batch, "cpu")
+    model.train()
+    with torch.no_grad():
+        g = model(b["point_cloud"], b["gt_images"][:, :2],
+                  unprojected_coords=b["unprojected_coords"])
+        bg = trainer.bg_color_of(cfg)
+        loss, _ = trainer.compute_loss(
+            trainer.render_supervision_views(g, b, cfg, bg),
+            b["gt_images"][:, 2:], cfg, bg)
+    return float(loss)
+
+
+def hold_scene_step(label, config, overrides, ops_label,
+                    loss_rounding_floor=False):
+    """One small scene step of ``config`` on the card and on the CPU, same
+    weights and batch: the geometry exactly, the loss to 1e-5, the gradient
+    w.r.t. the predicted gaussians and each op of the backbone over the
+    step's geometry entry by entry to TOL_GRAD, the parameter gradients in
+    relative L2 to TOL_SCENE_PARAM_L2. With ``loss_rounding_floor`` the
+    loss is held to max(1e-5, 3x the CPU loss's own float32 rounding
+    error), that error read against the same step with the backbone in
+    float64."""
+    import torch
+    from unipre3d_tpu_torch.data import SyntheticSceneDataset, collate
+    from unipre3d_tpu_torch.training.config import load_config
+    cfg = load_config(config, overrides=overrides)
     ds = SyntheticSceneDataset(cfg, num_scenes=1, seed=0, device="cpu")
     batch = collate([ds[0]])
     (l_a, geo_a, out_a, gg_a, pg_a, ops_a), (l_b, geo_b, out_b, gg_b, pg_b,
                                              ops_b) = (
         scene_snapshot(cfg, batch, d) for d in ("cpu", "cuda"))
+    tol_loss, floor_note = 1e-5, ""
+    if loss_rounding_floor:
+        l_64 = scene_loss(cfg, batch, torch.float64)
+        own = abs(l_a - l_64) / abs(l_64)
+        tol_loss = max(1e-5, 3 * own)
+        floor_note = (f" = max(1e-5, 3x the CPU's own float32 rounding "
+                      f"{own:.2e}, against a float64 backbone's loss "
+                      f"{l_64:.7f})")
     # the index structures are integer: the card's equal the CPU's exactly
     same = len(geo_a) == len(geo_b) and all(
         torch.equal(a, b) for a, b in zip(geo_a, geo_b))
@@ -1823,17 +1969,34 @@ def phase_parity():
     param_l2 = math.sqrt(sum(float(((pg_b[n] - pg_a[n]) ** 2).sum())
                              for n in pg_a)
                          / sum(float((pg_a[n] ** 2).sum()) for n in pg_a))
-    log(f"[parity] scene: geometry ({len(geo_a)} index tensors) card == CPU: "
-        f"{same}; loss cpu {l_a:.7f} cuda {l_b:.7f} (rel {loss_err:.2e}, tol "
-        f"1e-5); predicted gaussians, max rel err per field {out_err:.2e}; "
+    log(f"[parity] {label}: geometry ({len(geo_a)} index tensors) card == "
+        f"CPU: {same}; loss cpu {l_a:.7f} cuda {l_b:.7f} (rel "
+        f"{loss_err:.2e}, tol {tol_loss:.2e}{floor_note}); predicted "
+        f"gaussians, max rel err per field {out_err:.2e}; "
         f"gradient w.r.t. the gaussians {gauss_err:.2e} (tol {TOL_GRAD:g}); "
-        f"SparseUNet/PointFusion ops ({len(ops_err)} outputs and gradients) "
+        f"{ops_label} ({len(ops_err)} outputs and gradients) "
         f"{ops_err[worst_op]:.2e} at {worst_op} (tol {TOL_GRAD:g}); "
         f"parameter gradients, relative L2 {param_l2:.2e} (tol "
         f"{TOL_SCENE_PARAM_L2:g})")
-    if not same or loss_err > 1e-5 or gauss_err > TOL_GRAD or \
+    if not same or loss_err > tol_loss or gauss_err > TOL_GRAD or \
             ops_err[worst_op] > TOL_GRAD or param_l2 > TOL_SCENE_PARAM_L2:
-        raise AssertionError("scene: card step disagrees with the CPU step")
+        raise AssertionError(f"{label}: card step disagrees with the CPU "
+                             f"step")
+
+
+def phase_parity_ptv3():
+    """One float32 step of a small PTv3 configuration (the small scene of
+    the SparseUNet parity with a narrow five-stage PTv3, DropPath and the
+    order shuffle off) on the card (kernels, SDPA) and on the CPU (plain
+    versions), same weights and batch, held as the SparseUNet scene step
+    (``hold_scene_step``; the ops: ``ptv3_ops_snapshot``), the loss to
+    max(1e-5, 3x its own float32 rounding on the CPU): this step's loss
+    moves by about 1e-5 or more between a float32 and a float64 backbone
+    on the CPU alone (the phase prints it), where SparseUNet's moves far
+    less: the blocks' rounding moves every pixel of the renders the same
+    way."""
+    hold_scene_step("ptv3", "ptv3_pretraining", SMALL_PTV3_OVERRIDES,
+                    "PTv3 ops", loss_rounding_floor=True)
 
 
 def unclipped_grads(model_state_metrics):
@@ -2080,9 +2243,12 @@ def main():
         launches = phase_train(smi, tmp)
         for k, v in phase_train_backbones(smi, tmp).items():
             launches[k] = launches.get(k, 0) + v
+        for k, v in phase_train_ptv3(smi, tmp).items():
+            launches[k] = launches.get(k, 0) + v
         phase_test_renders(smi, tmp)
     phase_parity()
     phase_parity_backbones()
+    phase_parity_ptv3()
     launches["stream_bwd"] = phase_eval_parity()
 
     rows = kernel_rows(dense, binned, stream, scan, launches)

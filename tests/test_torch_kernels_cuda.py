@@ -17,6 +17,9 @@ batch and time, in another order than autograd's); at the mixer's bf16
 strided operands, each gradient in its input's dtype and held beyond its
 rounding into bf16 (half an ulp), and the backward bit for bit across two
 launches.
+One full-width PTv3 forward and backward (``ptv3_pretraining``, default
+run) on the binned route: each binned kernel launches once, the loss and
+every gradient are finite.
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -657,3 +660,42 @@ def test_scan_backward_is_deterministic(cuda, layout):
     torch.cuda.synchronize()
     for a, b in zip(first, second):
         assert torch.equal(a, b)
+
+
+@pytest.mark.cuda
+def test_ptv3_full_width_step_launches_the_binned_pair(cuda):
+    """One full-width ``ptv3_pretraining`` forward and backward on the card
+    (80,000 + 4,096 rows, 8 + 8 views at 160x120, the default bf16 compute
+    dtype, DropPath and the order shuffle drawn from a seeded generator) on
+    the binned route: each binned kernel launches once, and the loss and
+    every parameter's gradient are finite."""
+    from unipre3d_tpu_torch.data import (SyntheticSceneDataset, batch_to,
+                                         collate)
+    from unipre3d_tpu_torch.training import trainer
+    from unipre3d_tpu_torch.training.config import load_config
+    cfg = load_config("ptv3_pretraining", overrides=[
+        "opt.batch_size=1", "data.pts_dataset_root=synthetic",
+        "tpu.raster_impl_train=pallas_binned"])
+    batch = batch_to(collate([SyntheticSceneDataset(
+        cfg, num_scenes=1, seed=0, device=cuda)[0]]), cuda)
+    model, state = trainer.create_train_state(
+        cfg, device=cuda, seed=0, dtype=trainer.compute_dtype_of(cfg))
+    batch["geometry"] = trainer.make_geometry_fn(cfg, model)(batch)
+    assert batch["geometry"].fine_mask.shape == (1, 84096)
+    n_in = int(cfg.data.input_images)
+    before = (sb.BINNED_FWD.launches, sb.BINNED_BWD.launches)
+    model.train()
+    g = trainer.predict(model, batch, n_in, state.generator)
+    bg = trainer.bg_color_of(cfg)
+    loss, _ = trainer.compute_loss(
+        trainer.render_supervision_views(g, batch, cfg, bg),
+        batch["gt_images"][:, n_in:], cfg, bg)
+    loss.backward()
+    assert (sb.BINNED_FWD.launches - before[0],
+            sb.BINNED_BWD.launches - before[1]) == (1, 1)
+    assert math.isfinite(float(loss.detach()))
+    grads = {n: p.grad for n, p in model.named_parameters()
+             if p.grad is not None}
+    assert len(grads) > 400
+    for n, gr in grads.items():
+        assert bool(torch.isfinite(gr).all()), n

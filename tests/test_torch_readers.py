@@ -13,6 +13,9 @@ tests/test_torch_point_ops.py), so examples are compared exactly:
   two conditioning views, and the resample of a broken object: JAX draws
   from the global ``random`` / ``np.random``, seeded with ``s``, the port
   from ``Draws.seeded(s)``;
+* the PTv3 ScanNet pipeline, whose ``FPS`` caps the cloud (the C++ host
+  FPS of each package; tests/test_torch_host_ops.py holds the port's to
+  its numpy reference);
 * each ported transform on the same input and seed; the point-file
   loaders (.npy, .txt, .ply) and the camera-info reader;
 * the prefetching ``Loader`` yields the batches of the in-order path, with
@@ -141,11 +144,11 @@ def shapenet_cfgs(root, extra=()):
             load_config("transformer_pretraining", overrides=over))
 
 
-def scannet_cfgs(roots, extra=()):
+def scannet_cfgs(roots, extra=(), config="sparseunet_pretraining"):
     over = [f"data.pts_dataset_root={roots[0]}",
             f"data.rgb_dataset_root={roots[1]}"] + SCANNET_SMALL + list(extra)
-    return (jload_config("sparseunet_pretraining", overrides=over),
-            load_config("sparseunet_pretraining", overrides=over))
+    return (jload_config(config, overrides=over),
+            load_config(config, overrides=over))
 
 
 @pytest.mark.parametrize("split", ["val", "test"])
@@ -209,6 +212,27 @@ def test_scannet_examples_seeded_alike(scannet_roots, split, extra):
     assert b["unprojected_coords"].shape == (2, 32, 32, 4)
 
 
+@pytest.mark.parametrize("split", ["train", "val"])
+def test_scannet_ptv3_reader_caps_with_fps_alike(scannet_roots, split):
+    """The PTv3 pipeline appends ``FPS`` after ``Collect``: the scene's
+    ~2,000 voxels are capped at ``max_points`` = 1,024 by farthest point
+    sampling (the SpUNet reader truncates instead), equal to JAX's reader
+    key by key on the same seed."""
+    jcfg, tcfg = scannet_cfgs(scannet_roots, config="ptv3_pretraining")
+    jds = jscannet.ScanNetDataset(jcfg, split)
+    tds = tscannet.ScanNetDataset(tcfg, split)
+    assert isinstance(tds.transforms[-1], TT.FPS)
+    jax_draws(21)
+    a = jds[0]
+    b = tds.get(0, Draws.seeded(21))
+    assert_examples_equal(a, b, f"{split}.")
+    assert b["point_cloud"]["mask"].all()
+    spunet = tscannet.ScanNetDataset(scannet_cfgs(scannet_roots)[1], split)
+    c = spunet.get(0, Draws.seeded(21))
+    assert not np.array_equal(b["point_cloud"]["coord"],
+                              c["point_cloud"]["coord"])
+
+
 def cloud(n=400, seed=0):
     rng = np.random.default_rng(seed)
     w2c = np.eye(4)
@@ -241,6 +265,7 @@ TRANSFORMS = {
         grid_size=0.1, hash_type="ravel", mode="test",
         return_grid_coord=True),
     "normalize_color": lambda M: M.NormalizeColor(),
+    "fps": lambda M: M.FPS(max_points=150),
     "collect": lambda M: M.Collect(keys=("coord", "segment"),
                                    stack_keys=("extrinsic",),
                                    feat_keys=("normal", "color")),

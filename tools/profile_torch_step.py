@@ -4,20 +4,24 @@
     python3 tools/profile_torch_step.py [--tf32] [--scene]
                                         [--dtype bfloat16] [--cache]
                                         [--backbone pointmlp|mamba3d|pcm]
+    python3 tools/profile_torch_step.py --scene [--backbone ptv3] [...]
 
 Without ``--scene``: ``<backbone>_pretraining`` (``transformer`` by
 default) at full width (random weights from seed 42) on a random batch of
-the real shapes (batch 32, 1024 points, 1 + 4 views at 128²). With ``--scene``: ``sparseunet_pretraining``
-at full width on the binned splat route (batch 1, 80,000 point slots, 8 + 8
-views at 160x120) on one synthetic scene, its SparseUNet geometry built
-before each step and timed apart. Runs two warm-up steps, then times three
-steps with the host clock around synchronized steps and traces them with
-``torch.profiler``. Prints the card's name and power limit, the step times,
-the device time of the step's named ranges (``step/forward``,
-``predictor/frozen_vae``, ``predictor/sparseunet``, ``point_ops/fps``,
-``step/render``, ``step/backward``, ``step/optimizer``), the device busy share (sum of kernel
-time over wall time), the top kernels by device time and the port's
-hand-written kernels wherever they rank.
+the real shapes (batch 32, 1024 points, 1 + 4 views at 128²). With
+``--scene``: ``sparseunet_pretraining`` at full width on the binned splat
+route (batch 1, 80,000 point slots, 8 + 8 views at 160x120) on one
+synthetic scene, its SparseUNet geometry built before each step and timed
+apart; with ``--scene --backbone ptv3`` the same for ``ptv3_pretraining``
+(its PTv3 geometry, with each stage's valid rows). Runs two warm-up steps,
+then times three steps with the host clock around synchronized steps and
+traces them with ``torch.profiler``. Prints the card's name and power
+limit, the step times, the device time of the step's named ranges
+(``step/forward``, ``predictor/frozen_vae``, ``predictor/sparseunet`` or
+``predictor/ptv3``, ``point_ops/fps``, ``step/render``,
+``step/backward``, ``step/optimizer``), the device busy share (sum of
+kernel time over wall time), the top kernels by device time and the
+port's hand-written kernels wherever they rank.
 TF32 is off unless ``--tf32`` (as in chip_smoke.py). The model computes in
 ``--dtype`` (default float32); with ``--cache`` each step takes the
 conditioning views' VAE features from the feature cache
@@ -47,9 +51,16 @@ def main():
     ap.add_argument("--dtype", default="float32",
                     choices=("float32", "bfloat16"))
     ap.add_argument("--cache", action="store_true")
-    ap.add_argument("--backbone", default="transformer",
-                    choices=("transformer", "pointmlp", "mamba3d", "pcm"))
+    ap.add_argument("--backbone", default=None,
+                    help="object: transformer (default), pointmlp, mamba3d, "
+                         "pcm; scene: sparseunet (default), ptv3")
     args = ap.parse_args()
+    scene_backbones, object_backbones = ("sparseunet", "ptv3"), (
+        "transformer", "pointmlp", "mamba3d", "pcm")
+    backbone = args.backbone or ("sparseunet" if args.scene
+                                 else "transformer")
+    if backbone not in (scene_backbones if args.scene else object_backbones):
+        ap.error(f"--backbone {backbone} with scene={args.scene}")
 
     import torch
     from torch.profiler import ProfilerActivity, profile
@@ -67,13 +78,13 @@ def main():
                           "--format=csv,noheader"], capture_output=True,
                          text=True, check=True).stdout.strip()
     if args.scene:
-        cfg = load_config("sparseunet_pretraining", overrides=[
+        cfg = load_config(f"{backbone}_pretraining", overrides=[
             "opt.batch_size=1", "data.pts_dataset_root=synthetic",
             "tpu.raster_impl_train=pallas_binned"])
         host = collate([SyntheticSceneDataset(cfg, num_scenes=1, seed=0,
                                               device=dev)[0]])
     else:
-        cfg = load_config(f"{args.backbone}_pretraining",
+        cfg = load_config(f"{backbone}_pretraining",
                           overrides=[f"opt.batch_size={BATCH}"])
         host = random_batch(cfg, BATCH, n_points=1024, n_views=5, seed=0)
     batch = batch_to(host, dev)
@@ -102,6 +113,13 @@ def main():
             geo_ms.append((time.perf_counter() - t) * 1e3)
         print(f"[profile] geometry build ms {[round(t, 2) for t in geo_ms]}",
               flush=True)
+        geo = batch["geometry"]
+        if hasattr(geo, "pool_dropped"):
+            masks = [geo.fine_mask] + [c.mask for c in geo.clusters]
+            print(f"[profile] PTv3 stage rows "
+                  f"{[int(m.sum()) for m in masks]} (capacities "
+                  f"{[m.shape[1] for m in masks]}), parents dropped past "
+                  f"capacity {geo.pool_dropped.sum(0).tolist()}", flush=True)
     for _ in range(2):
         step(state, batch)
     torch.cuda.synchronize()
@@ -124,8 +142,8 @@ def main():
     self_dev = lambda e: getattr(e, "self_device_time_total",
                                  getattr(e, "self_cuda_time_total", 0.0))
     ranges = ("step/forward", "predictor/frozen_vae", "predictor/sparseunet",
-              "point_ops/fps", "step/render", "step/backward",
-              "step/optimizer")
+              "predictor/ptv3", "point_ops/fps", "step/render",
+              "step/backward", "step/optimizer")
     for name in ranges:
         e = [x for x in events if x.key == name]
         if e:

@@ -18,7 +18,9 @@ Behavior parity:
 * the transform pipeline (data/transforms.py): train with ``model.aug`` =
   CenterShift / RandomRotate(z, x, y) / Jitter / Chromatic* /
   GridSample(2 cm) / CenterShift(xy) / NormalizeColor / Collect, else
-  GridSample / NormalizeColor / Collect;
+  GridSample / NormalizeColor / Collect; for PTv3 then ``FPS``, which
+  caps the cloud at ``data.max_points`` (C++ host FPS, ties to the lowest
+  index);
 * every example padded to ``data.max_points`` with a validity mask, in the
   scene schema the trainer takes (``point_cloud`` dict, camera stacks,
   ``unprojected_coords``).
@@ -26,9 +28,7 @@ Behavior parity:
 Random draws (frame choice, transforms, the resample of a scene with too
 few frames) come from the ``Draws`` an example is read with
 (data/draws.py), where the JAX reader draws from the global ``random`` and
-``np.random``. The PTv3 pipeline's ``FPS`` cap is not ported yet (ROADMAP.md
-queue A, item 15): the reader raises for that backbone. PIL reads the
-images.
+``np.random``. PIL reads the images.
 """
 
 from __future__ import annotations
@@ -104,10 +104,6 @@ class ScanNetDataset:
     takes_draws = True
 
     def __init__(self, cfg, split: str = "train", device=None):
-        if cfg.model.backbone_type == "ptv3":
-            raise NotImplementedError(
-                "the PTv3 pipeline's FPS transform is not ported (ROADMAP.md "
-                "queue A, item 15)")
         self.cfg = cfg
         self.split = split
         self.pts_root = cfg.data.pts_dataset_root
@@ -168,6 +164,8 @@ class ScanNetDataset:
             keys=("coord", "grid_coord", "segment", "inverse"),
             stack_keys=("extrinsic", "gt_images", "depth"),
             feat_keys=("normal", "color")))
+        if self.cfg.model.backbone_type == "ptv3":
+            tfs.append(T.FPS(max_points=self.max_points))
         return tfs
 
     # ------------------------------------------------------------------

@@ -4,18 +4,19 @@ The port's own copy of the part of unipre3d_tpu/data/transforms.py that
 the ScanNet pretraining pipeline runs (scannet.py:126-157): ``Compose``,
 ``Collect``, ``NormalizeColor``, ``CenterShift``, ``RandomRotate``,
 ``RandomJitter``, ``ChromaticAutoContrast``, ``ChromaticTranslation``,
-``ChromaticJitter`` and ``GridSample`` with ``fnv_hash_vec`` /
-``ravel_hash_vec``. Every geometric transform that moves the cloud also
-updates the listed camera ``extrinsic`` matrices (w2c) by right-multiplying
-them with the inverse world transform, so the render supervision stays
-consistent under augmentation.
+``ChromaticJitter``, ``GridSample`` with ``fnv_hash_vec`` /
+``ravel_hash_vec``, and for PTv3 ``FPS``. Every geometric transform that
+moves the cloud also updates the listed camera ``extrinsic`` matrices
+(w2c) by right-multiplying them with the inverse world transform, so the
+render supervision stays consistent under augmentation.
 
 Each transform is ``t(data_dict, draws)``. The random ones draw from
 ``draws`` (data/draws.py) where the JAX transforms draw from the global
 ``random`` and ``np.random``, in the same order and with the same calls,
-so equal seeds give equal results. The ``FPS`` transform (PTv3 only) and
-the fine-tuning transforms are not ported yet (ROADMAP.md queue A, items
-15 and 16).
+so equal seeds give equal results. ``FPS`` draws nothing: it caps the
+cloud with the C++ host FPS (native/), which breaks ties by the lowest
+index. The fine-tuning transforms are not ported yet (ROADMAP.md queue A,
+item 16).
 """
 
 from __future__ import annotations
@@ -291,4 +292,29 @@ class GridSample:
         if self.return_grid_coord:
             data_dict["grid_coord"] = grid_coord
         data_dict["min_coord"] = np.asarray(min_coord).reshape(3)
+        return data_dict
+
+
+class FPS:
+    """Cap the cloud at ``max_points`` by farthest point sampling (seed
+    index 0), keeping the selected points in their input order; a cloud
+    of at most ``max_points`` passes unchanged."""
+
+    KEYS = ("coord", "color", "normal", "segment", "instance", "grid_coord",
+            "feat")
+
+    def __init__(self, max_points=80000):
+        self.max_points = max_points
+
+    def __call__(self, data_dict, draws=None):
+        if len(data_dict["coord"]) <= self.max_points:
+            return data_dict
+        from unipre3d_tpu_torch.native import host_fps
+        idx = host_fps(np.ascontiguousarray(data_dict["coord"],
+                                            dtype=np.float32),
+                       self.max_points)
+        idx.sort()
+        for k in self.KEYS:
+            if k in data_dict:
+                data_dict[k] = data_dict[k][idx]
         return data_dict

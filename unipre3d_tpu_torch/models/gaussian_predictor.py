@@ -2,7 +2,7 @@
 
 Port of unipre3d_tpu/models/gaussian_predictor.py, object level (the
 transformer, PointMLP, Mamba3D and PCM backbones with the object feature
-fusion) and scene level (the SparseUNet with PointFusion). The backbone
+fusion) and scene level (SparseUNet and PTv3 with PointFusion). The backbone
 emits 23 channels per point token, split ``[3, 1, 3, 4, 3, 9]`` into xyz
 offset / opacity / scale / rotation / SH-DC / SH-rest and activated into a
 renderable dict:
@@ -52,6 +52,7 @@ from unipre3d_tpu_torch.models.layers import F32, Dense
 from unipre3d_tpu_torch.models.mamba3d import Mamba3DEncoder
 from unipre3d_tpu_torch.models.pcm import PointMambaSeg
 from unipre3d_tpu_torch.models.pointmlp import PointMLPEncoder
+from unipre3d_tpu_torch.models.ptv3 import PointTransformerV3
 from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
@@ -64,6 +65,7 @@ MODEL_CONFIGS = {
     "pcm": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
     "mamba3d": {"feature_dim": 384, "fusion_dim": 384, "final_dim": 384},
     "sparseunet": {"feature_dim": 128, "fusion_dim": 32, "final_dim": 32},
+    "ptv3": {"feature_dim": 32, "fusion_dim": 32, "final_dim": 32},
 }
 # the object backbones built at full width whatever the overrides (JAX's)
 FIXED_WIDTH = ("pointmlp", "mamba3d", "pcm")
@@ -175,6 +177,11 @@ class PointFeaturePredictor(nn.Module):
             self.encoder = SpUNet(in_channels=6, num_classes=64,
                                   **(backbone_overrides or {}), dtype=dtype)
             self.final = FinalHead(64, 32, dtype=dtype)
+        elif backbone_type == "ptv3":
+            self.encoder = PointTransformerV3(
+                in_channels=6, **(backbone_overrides or {}), dtype=dtype)
+            self.final = FinalHead(self.encoder.dec_channels[0], 32,
+                                   dtype=dtype)
         else:
             raise ValueError(f"unsupported backbone: {backbone_type!r}")
 
@@ -186,11 +193,12 @@ class PointFeaturePredictor(nn.Module):
         return self.final(feats), center
 
     def forward_scene(self, data, image_features=None, unprojected=None,
-                      fusion_mlp=None, geometry=None):
+                      fusion_mlp=None, geometry=None, generator=None):
         """Scene-level forward: (23 channels [B, M', 23], coords [B, M', 3],
         mask [B, M'])."""
         feats, coords, mask = self.encoder.forward_point_fusion(
-            data, image_features, unprojected, fusion_mlp, geometry=geometry)
+            data, image_features, unprojected, fusion_mlp, geometry=geometry,
+            generator=generator)
         return self.final(feats), coords, mask
 
 
@@ -220,6 +228,7 @@ class GaussianSplatPredictor(nn.Module):
         if level not in ("object", "scene"):
             raise ValueError(f"unknown level {level!r}")
         self.level, self.dtype = level, dtype
+        self.backbone_type = backbone_type
         self.max_sh_degree = max_sh_degree
         self.isotropic = isotropic
         self.offset_scale = offset_scale
@@ -276,13 +285,15 @@ class GaussianSplatPredictor(nn.Module):
         (conditioning views), c2w [B, V, 4, 4] -> dict of [B, V*G, ...]
         Gaussians. Scene: point_cloud the dict of the scene batch, image,
         unprojected_coords [B, V, H, W, 4] and ``geometry`` (the batch's
-        precomputed SpUNetGeometry; None builds it) -> dict of [B, M', ...]
-        with ``mask``. ``vae_features`` [B, V, feat_ch, H, W] (the feature
-        cache's) stand in for the VAE run on ``image``."""
+        precomputed SpUNetGeometry or PTv3Geometry; None builds it) -> dict
+        of [B, M', ...] with ``mask``. ``generator`` draws DropPath's masks
+        (and PTv3's order shuffle) in training. ``vae_features`` [B, V,
+        feat_ch, H, W] (the feature cache's) stand in for the VAE run on
+        ``image``."""
         if self.level == "scene":
             return self._forward_scene(point_cloud, image,
                                        unprojected_coords, geometry,
-                                       vae_features)
+                                       vae_features, generator)
         if self.use_fusion:
             B, V = image.shape[:2]
             with record_function("predictor/frozen_vae"):
@@ -307,18 +318,18 @@ class GaussianSplatPredictor(nn.Module):
         return d
 
     def _forward_scene(self, point_cloud, image, unprojected, geometry,
-                       vae_features=None):
+                       vae_features=None, generator=None):
         feats = None
         if self.use_fusion:
             with record_function("predictor/frozen_vae"):
                 xn = self.raw_normalized_features(
                     self._flat_views(image), self._flat_views(vae_features))
             feats = self.image_conv(xn)
-        with record_function("predictor/sparseunet"):
+        with record_function(f"predictor/{self.backbone_type}"):
             out, coords, mask = self.point_network.forward_scene(
                 point_cloud, feats, unprojected,
                 self.fusion_mlps if self.use_fusion else None,
-                geometry=geometry)
+                geometry=geometry, generator=generator)
         d = self.activate(out, coords)
         d["mask"] = mask
         return d

@@ -1,4 +1,4 @@
-"""Precomputed batch geometry of the SparseUNet scene backbone.
+"""Precomputed batch geometry of the scene backbones (SparseUNet, PTv3).
 
 Port of unipre3d_tpu/models/scene_geometry.py. Every index structure of
 one SpUNet forward (canonical voxel order, PointFusion pixel-voxel merge,
@@ -8,6 +8,14 @@ The trainer builds it once per batch, before the step, and hands it in the
 batch. A loop over the scenes replaces the JAX package's ``vmap``; every
 field is integer or boolean (or the world coords the merge permutes), and
 equals the JAX one exactly.
+
+PTv3's geometry (``PTv3Geometry``) has the same shared part and, per
+stage, its pooling clusters, its 3^3 table and the serialization orders.
+The JAX package builds these inline in the PTv3 forward
+(unipre3d_tpu/models/ptv3.py:238-320; its ``make_geometry_fn`` returns
+None for PTv3); building them before the step computes the same integers.
+JAX's pooled world coordinates (``w_pool``, a segment mean) are left out:
+only stage 0's reach the output.
 """
 
 from __future__ import annotations
@@ -17,6 +25,7 @@ from typing import NamedTuple, Optional, Sequence, Tuple
 import torch
 
 from unipre3d_tpu_torch.ops import sparse as sp
+from unipre3d_tpu_torch.ops.serialization import encode
 
 
 class SpUNetGeometry(NamedTuple):
@@ -42,15 +51,28 @@ def _no_feats(m: int, device) -> torch.Tensor:
     return torch.zeros(m, 0, device=device)
 
 
-def _geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
-                  grid_size: float, pixel_capacity: int,
-                  level_caps: Sequence[int], use_fusion: bool
-                  ) -> SpUNetGeometry:
-    """Geometry of ONE scene (unbatched fields), for the gather executor
-    (the JAX package's ``conv_impl="gather"``)."""
+class FineGeometry(NamedTuple):
+    """The part of a scene backbone's geometry that SparseUNet and PTv3
+    share, one scene: the canonical input order, the stem's table, the
+    PointFusion merge, and the final (merged) set with its 3^3 table.
+    ``coords`` are the final set's grid coords, the levels' input."""
+    order0: torch.Tensor
+    mask0: torch.Tensor
+    nbr5: torch.Tensor
+    pix_rep: Optional[torch.Tensor]
+    merge_order: Optional[torch.Tensor]
+    world: torch.Tensor
+    fine_mask: torch.Tensor
+    nbr3_fine: torch.Tensor
+    coords: torch.Tensor
+
+
+def _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
+                       grid_size: float, pixel_capacity: int,
+                       use_fusion: bool) -> FineGeometry:
+    """The shared part of ONE scene's geometry (unbatched fields)."""
     dev = grid_coord.device
     M = grid_coord.shape[0]
-    offs3 = sp.kernel_offsets(3)
 
     order0 = sp._argsort(sp.pack_code(grid_coord, mask))
     coords_c, mask0, world_c = grid_coord[order0], mask[order0], coord[order0]
@@ -81,19 +103,37 @@ def _geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
 
     nbr3_fine = sp.find_neighbors(
         sp.SparseVoxels(fine_coords, _no_feats(fine_coords.shape[0], dev),
-                        fine_mask), offs3)
+                        fine_mask), sp.kernel_offsets(3))
+    return FineGeometry(order0=order0, mask0=mask0, nbr5=nbr5,
+                        pix_rep=pix_rep, merge_order=merge_order, world=world,
+                        fine_mask=fine_mask, nbr3_fine=nbr3_fine,
+                        coords=fine_coords)
+
+
+def _geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
+                  grid_size: float, pixel_capacity: int,
+                  level_caps: Sequence[int], use_fusion: bool
+                  ) -> SpUNetGeometry:
+    """SparseUNet geometry of ONE scene (unbatched fields), for the gather
+    executor (the JAX package's ``conv_impl="gather"``): the shared part,
+    then a stride-2 structure and a 3^3 table per level."""
+    fine = _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj,
+                              grid_size=grid_size,
+                              pixel_capacity=pixel_capacity,
+                              use_fusion=use_fusion)
+    dev = grid_coord.device
+    offs3 = sp.kernel_offsets(3)
     downs, nbrs = [], []
-    cur_coords, cur_mask = fine_coords, fine_mask
+    cur_coords, cur_mask = fine.coords, fine.fine_mask
     for cap in level_caps:
         ds = sp.downsample_structure(cur_coords, cur_mask, cap)
         nbrs.append(sp.find_neighbors(
             sp.SparseVoxels(ds.coords, _no_feats(cap, dev), ds.mask), offs3))
         downs.append(ds)
         cur_coords, cur_mask = ds.coords, ds.mask
-    return SpUNetGeometry(
-        order0=order0, mask0=mask0, nbr5=nbr5, pix_rep=pix_rep,
-        merge_order=merge_order, world=world, fine_mask=fine_mask,
-        nbr3_fine=nbr3_fine, downs=tuple(downs), nbrs=tuple(nbrs))
+    shared = fine._asdict()
+    del shared["coords"]
+    return SpUNetGeometry(**shared, downs=tuple(downs), nbrs=tuple(nbrs))
 
 
 def _stack(items):
@@ -126,4 +166,132 @@ def build_spunet_geometry(data, unprojected, *, grid_size: float,
             unprojected[b] if use_fusion else None,
             grid_size=grid_size, pixel_capacity=pixel_capacity,
             level_caps=level_caps, use_fusion=use_fusion))
+    return _stack(scenes)
+
+
+# PTv3 (unipre3d_tpu/models/ptv3.py): codes at depth 10 at every stage
+SER_DEPTH = 10
+
+
+class Serialized(NamedTuple):
+    """Per-order sort of a voxel set's rows: order [..., O, M] (the row at
+    each sorted position) and inverse [..., O, M] (each row's position)."""
+    order: torch.Tensor
+    inverse: torch.Tensor
+
+
+def serialize(coords: torch.Tensor, mask: torch.Tensor,
+              orders: Sequence[str], depth: int = SER_DEPTH) -> Serialized:
+    """Stable argsort of each order's code: coords [..., M, 3], mask
+    [..., M] -> Serialized of [..., O, M]. Coordinates are clipped to
+    [0, 2^depth) and encoded at ``depth`` (JAX ``ptv3.py:serialize``; the
+    PTv3 forward passes 10 at every stage, its ``depth -= 1`` never reaching
+    the encoder). Invalid rows take ``INVALID_CODE``, above every 30-bit
+    code, and sort last; equal codes (PointFusion's duplicate voxels) keep
+    their row order, as ``jnp.argsort`` does."""
+    c = coords.clamp(0, (1 << depth) - 1)
+    codes = torch.stack([
+        torch.where(mask, encode(c, order=o, depth=depth),
+                    torch.full(mask.shape, sp.INVALID_CODE, dtype=torch.long,
+                               device=mask.device)) for o in orders], -2)
+    order = sp._argsort(codes)
+    inverse = torch.empty_like(order).scatter_(
+        -1, order, torch.arange(order.shape[-1], device=order.device
+                                ).expand_as(order).contiguous())
+    return Serialized(order, inverse)
+
+
+class PTv3Geometry(NamedTuple):
+    """All index structures of one PTv3 forward, batched [B, ...]: the
+    fields SpUNetGeometry shares (order0 ... nbr3_fine; stage 0 is the
+    final set, its table ``nbr3_fine``); ``clusters`` per pooled stage
+    (s = 1..S-1, Clustered of stage s-1's rows into stage s); ``nbrs`` per
+    pooled stage [B, Mc, 27]; ``sers`` per stage (Serialized [B, O, M_s]);
+    ``pool_dropped`` [B, S-1]: the distinct parents each pooling dropped
+    past its capacity (JAX drops them silently)."""
+    order0: torch.Tensor
+    mask0: torch.Tensor
+    nbr5: torch.Tensor
+    pix_rep: Optional[torch.Tensor]
+    merge_order: Optional[torch.Tensor]
+    world: torch.Tensor
+    fine_mask: torch.Tensor
+    nbr3_fine: torch.Tensor
+    clusters: Tuple[sp.Clustered, ...]
+    nbrs: Tuple[torch.Tensor, ...]
+    sers: Tuple[Serialized, ...]
+    pool_dropped: torch.Tensor
+
+
+def ptv3_stage_caps(m_fine: int, n_stages: int, patch_size: int,
+                    pool_capacity_div: int) -> Tuple[int, ...]:
+    """Row capacity of each stage: the final set's, then each pooling's
+    ``ceil(max(cap_prev // div, patch) / patch) * patch`` (JAX
+    ``ptv3.py:281-284``)."""
+    caps = [m_fine]
+    for _ in range(1, n_stages):
+        c = max(caps[-1] // pool_capacity_div, patch_size)
+        caps.append(-(-c // patch_size) * patch_size)
+    return tuple(caps)
+
+
+def _distinct_parents(coords, mask) -> torch.Tensor:
+    """The number of distinct parents (coords >> 1) of the valid rows."""
+    code = torch.sort(sp.pack_code(coords >> 1, mask)).values
+    return sp._first_of_runs(code, code != sp.INVALID_CODE).sum()
+
+
+def _ptv3_geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
+                       grid_size: float, pixel_capacity: int,
+                       orders: Sequence[str], n_stages: int,
+                       patch_size: int, pool_capacity_div: int,
+                       use_fusion: bool) -> PTv3Geometry:
+    """PTv3 geometry of ONE scene: the shared part, then per stage its
+    serialization and, past stage 0, its pooling and 3^3 table."""
+    fine = _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj,
+                              grid_size=grid_size,
+                              pixel_capacity=pixel_capacity,
+                              use_fusion=use_fusion)
+    dev = grid_coord.device
+    caps = ptv3_stage_caps(fine.fine_mask.shape[0], n_stages, patch_size,
+                           pool_capacity_div)
+    offs3 = sp.kernel_offsets(3)
+    cur_coords, cur_mask = fine.coords, fine.fine_mask
+    sers = [serialize(cur_coords, cur_mask, orders)]
+    clusters, nbrs, dropped = [], [], []
+    for cap in caps[1:]:
+        cl = sp.pool_clusters(cur_coords, cur_mask, cap)
+        dropped.append(torch.clamp_min(
+            _distinct_parents(cur_coords, cur_mask) - cap, 0))
+        clusters.append(cl)
+        nbrs.append(sp.find_neighbors(
+            sp.SparseVoxels(cl.coords, _no_feats(cap, dev), cl.mask), offs3))
+        sers.append(serialize(cl.coords, cl.mask, orders))
+        cur_coords, cur_mask = cl.coords, cl.mask
+    pool_dropped = torch.stack(dropped) if dropped else \
+        torch.zeros(0, dtype=torch.long, device=dev)
+    shared = fine._asdict()
+    del shared["coords"]
+    return PTv3Geometry(**shared, clusters=tuple(clusters), nbrs=tuple(nbrs),
+                        sers=tuple(sers), pool_dropped=pool_dropped)
+
+
+def build_ptv3_geometry(data, unprojected, *, grid_size: float,
+                        pixel_capacity: int, orders: Sequence[str],
+                        n_stages: int, patch_size: int,
+                        pool_capacity_div: int,
+                        use_fusion: bool) -> PTv3Geometry:
+    """Batched PTv3 geometry (inputs as :func:`build_spunet_geometry`).
+    Stage capacities follow :func:`ptv3_stage_caps` from the final set's
+    rows (M + pixel_capacity under fusion): 84,096 -> 28,032 -> 9,360 ->
+    3,120 -> 1,056 at the published size."""
+    scenes = []
+    for b in range(data["mask"].shape[0]):
+        scenes.append(_ptv3_geometry_one(
+            data["grid_coord"][b], data["mask"][b], data["coord"][b],
+            data["min_coord"][b] if use_fusion else None,
+            unprojected[b] if use_fusion else None,
+            grid_size=grid_size, pixel_capacity=pixel_capacity,
+            orders=orders, n_stages=n_stages, patch_size=patch_size,
+            pool_capacity_div=pool_capacity_div, use_fusion=use_fusion))
     return _stack(scenes)

@@ -249,15 +249,16 @@ class SpUNet(nn.Module):
 
     def forward_point_fusion(self, data, image_features=None,
                              unprojected=None, fusion_mlp=None,
-                             geometry=None):
+                             geometry=None, generator=None):
         """data: dict with ``coord`` [B, M, 3], ``grid_coord`` [B, M, 3],
         ``feat`` [B, M, in_channels], ``mask`` [B, M], ``min_coord``
         [B, 3]; image_features [B*V, C, H, W] with C == base_channels;
         unprojected [B, V, H, W, 4]. ``geometry``: the precomputed
         SpUNetGeometry of the batch, built here when None (the same
-        computation). Returns (features [B, M', num_classes], world coords
-        [B, M', 3], mask [B, M']) with M' = M + pixel_capacity under
-        fusion."""
+        computation). ``generator`` is taken for the scene backbones'
+        common signature; SpUNet draws nothing. Returns (features [B, M',
+        num_classes], world coords [B, M', 3], mask [B, M']) with M' = M +
+        pixel_capacity under fusion."""
         if geometry is None:
             geometry = self.build_geometry(data, unprojected,
                                            fusion_mlp is not None)

@@ -21,8 +21,7 @@ Not ported: the TPU gather-cost tricks (``_window_gather``, the hierarchical
 rank of ``_merge_lookup``, the 16-lane code window of
 ``_find_neighbors_cubic``), each replaced by one gather or one
 ``searchsorted`` with the same result; the block-dense executor
-(``BlockStructure``, ROADMAP item 18); ``pool_clusters`` and
-``segment_reduce`` (PTv3 only).
+(``BlockStructure``, ROADMAP item 18).
 """
 
 from __future__ import annotations
@@ -318,3 +317,58 @@ def merge_voxel_sets(a_coords, a_feats, a_mask, b_coords, b_feats, b_mask
     return canonicalize(torch.cat([a_coords, b_coords]),
                         torch.cat([a_feats, b_feats]),
                         torch.cat([a_mask, b_mask]))
+
+
+class Clustered(NamedTuple):
+    """PTv3's stride-2 pooling structure of one scene (or [B, ...] once
+    stacked): the coarse voxel set (``coords`` [cap, 3], 0 where invalid,
+    and ``mask`` [cap], canonical) and each fine row's coarse row
+    (``parent_idx`` [M], -1 for an invalid row or a parent past the
+    capacity)."""
+    coords: torch.Tensor
+    mask: torch.Tensor
+    parent_idx: torch.Tensor
+
+
+def pool_clusters(coords: torch.Tensor, mask: torch.Tensor,
+                  capacity_out: int) -> Clustered:
+    """Distinct parents (coords >> 1), sorted by packed code (stable), and
+    the fine -> coarse map of one scene; parents past ``capacity_out`` are
+    dropped (their children get -1). The parent relation and the drop rule
+    are :func:`downsample_structure`'s (JAX ``sparse.py:pool_clusters``)."""
+    ds = downsample_structure(coords, mask, capacity_out)
+    return Clustered(ds.coords, ds.mask, ds.parent_idx)
+
+
+def segment_reduce(values: torch.Tensor, seg_idx: torch.Tensor,
+                   capacity: int, reduce: str = "max") -> torch.Tensor:
+    """Masked segment reduction over the row axis: values [..., M, C],
+    seg_idx [..., M] (-1 = skip) -> [..., capacity, C]; ``reduce`` is
+    ``max``, ``sum`` or ``mean``. ``max`` starts from the dtype's lowest
+    finite value and turns an empty segment into 0; its gradient splits
+    evenly over tied maxima (``scatter_reduce``'s amax backward, as JAX's
+    ``.at[].max``). ``mean`` divides by the count, at least 1."""
+    C = values.shape[-1]
+    lead = values.shape[:-2]
+    ok = seg_idx >= 0
+    tgt = torch.where(ok, seg_idx, torch.full_like(seg_idx, capacity))
+    idx = tgt.long()[..., None].expand(*tgt.shape, C)
+    zero = torch.zeros((), dtype=values.dtype, device=values.device)
+    if reduce == "max":
+        neg = torch.finfo(values.dtype).min
+        v = torch.where(ok[..., None], values,
+                        torch.full((), neg, dtype=values.dtype,
+                                   device=values.device))
+        out = values.new_full((*lead, capacity + 1, C), neg).scatter_reduce(
+            -2, idx, v, "amax", include_self=True)[..., :capacity, :]
+        return torch.where(out == neg, zero, out)
+    if reduce not in ("sum", "mean"):
+        raise ValueError(f"reduce {reduce!r}: one of max, sum, mean")
+    v = torch.where(ok[..., None], values, zero)
+    out = values.new_zeros((*lead, capacity + 1, C)).scatter_add(
+        -2, idx, v)[..., :capacity, :]
+    if reduce == "mean":
+        cnt = values.new_zeros((*lead, capacity + 1)).scatter_add(
+            -1, tgt.long(), ok.to(values.dtype))[..., :capacity]
+        out = out / torch.clamp_min(cnt[..., None], 1.0)
+    return out

@@ -5,6 +5,8 @@
         [--device cpu] [--output-dir DIR] [key.subkey=value ...]
     python -m unipre3d_tpu_torch.train_network --config-name \
         sparseunet_pretraining data.pts_dataset_root=synthetic [...]
+    python -m unipre3d_tpu_torch.train_network --config-name \
+        ptv3_pretraining data.pts_dataset_root=synthetic [...]
 
 Counterpart of the repository's ``train_network.py``: composes the same
 config tree (the port's own copy under ``unipre3d_tpu_torch/configs``),
@@ -31,8 +33,8 @@ last it scores the ``val`` split with the eval step (novel-view PSNR and
 SSIM) and writes ``model_latest.ckpt``, and ``model_best.ckpt`` when the
 novel PSNR is the best yet; every ``logging.loop_log`` steps it renders
 the test videos of ``opt.test_generation_num`` test examples
-(training/video.py). At scene level each batch's SparseUNet geometry is
-built before its step and timed apart, as is the cache's attach.
+(training/video.py). At scene level each batch's SparseUNet or PTv3 geometry
+is built before its step and timed apart, as is the cache's attach.
 """
 
 from __future__ import annotations
@@ -109,7 +111,9 @@ def main(argv=None) -> dict:
     ``grad_norms``, ``nan_skipped`` (1.0 where the NaN skip dropped the
     update), ``step_ms`` (host clock around each synchronized step), and at
     scene level ``geometry_ms`` (the geometry build before the step) and
-    ``valid_rows`` (valid voxel rows, i.e. gaussians, of the batch), on the
+    ``valid_rows`` (valid voxel rows, i.e. gaussians, of the batch), for
+    PTv3 ``stage_rows`` (each stage's valid rows) and ``pool_dropped``
+    (each pooling's parents dropped past its capacity), on the
     binned route the render's ``dups``, ``budget_dropped`` and
     ``cap_dropped`` (duplicates kept, dropped by the budget, past the
     per-tile cap), the set-up time ``setup_s`` (config, dataset with its
@@ -190,7 +194,14 @@ def main(argv=None) -> dict:
             batch["geometry"] = geometry_fn(batch)
             _sync(device)
             result["geometry_ms"].append((time.perf_counter() - t) * 1e3)
-            result["valid_rows"].append(int(batch["geometry"].fine_mask.sum()))
+            geo = batch["geometry"]
+            result["valid_rows"].append(int(geo.fine_mask.sum()))
+            if hasattr(geo, "pool_dropped"):     # PTv3's stages
+                result.setdefault("stage_rows", []).append(
+                    [int(geo.fine_mask.sum())]
+                    + [int(c.mask.sum()) for c in geo.clusters])
+                result.setdefault("pool_dropped", []).append(
+                    [int(x) for x in geo.pool_dropped.sum(0)])
         _sync(device)
         t = time.perf_counter()
         metrics = train_step(state, batch)

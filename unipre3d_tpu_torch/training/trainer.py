@@ -19,7 +19,7 @@ tiled renderer (render.py:rasterize_projected) with ``auto_tile`` tiles and
 ``tpu.raster_tile_capacity`` gaussians a tile. Any other value raises (the
 JAX trainer reads a value it does not know as ``xla``).
 
-The scene level takes its index structures (SparseUNet geometry) from
+The scene level takes its index structures (SparseUNet or PTv3 geometry) from
 ``batch["geometry"]``, built before the step by ``make_geometry_fn``, or
 builds them inside the step when the batch has none. Both steps take the
 conditioning views' VAE features from ``batch["vae_features"]`` when the
@@ -283,10 +283,11 @@ def create_train_state(cfg, device=None, seed: int = 0, state_dict=None,
 
 
 def make_geometry_fn(cfg, model: GaussianSplatPredictor):
-    """Batch -> its SparseUNet geometry (models/scene_geometry.py), or None
-    for configs without one (object level). Run before the step, as the
-    JAX package's input pipeline does; the step takes it from
-    ``batch["geometry"]``."""
+    """Batch -> its scene backbone's geometry (models/scene_geometry.py:
+    SparseUNet's, or PTv3's, which the JAX package builds inside the
+    forward instead), or None for configs without one (object level). Run
+    before the step, as the JAX package's input pipeline does for
+    SparseUNet; the step takes it from ``batch["geometry"]``."""
     if cfg.opt.level != "scene":
         return None
     encoder = model.point_network.encoder
@@ -309,7 +310,7 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
     if model.level == "scene":
         args = (batch["point_cloud"], batch["gt_images"][:, :n_in])
         kwargs = dict(unprojected_coords=batch.get("unprojected_coords"),
-                      geometry=batch.get("geometry"))
+                      geometry=batch.get("geometry"), generator=generator)
     else:
         args = (batch["point_cloud"], batch["gt_images"][:, :n_in],
                 batch["view_to_world_transforms"][:, :n_in])
