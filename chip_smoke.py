@@ -73,7 +73,15 @@ Phases, all of them, in order; any failure exits non-zero:
    set of views in one launch, that launch held bit for bit against the
    plain version on its own inputs, and its frames equal bit for bit to one
    launch a view (the scene's also through the tiled renderer), each timed.
-6. parity: one train step of a small object and a small scene configuration
+6. export, warm start and LPIPS (``phase_warm_start_lpips_export``): the
+   object run's export under the reference's names against the export of
+   its checkpoint on the CPU, bit for bit; a new full-width default run
+   warm-started from that ``.pth`` with random LPIPS weights, the term from
+   step 1, three steps and val (the backbone equal to the export right
+   after the warm start, ``lpips`` 0 at the first step and above 0 after,
+   the dense pair launched, no NaN skip) and ``eval.main`` over it with
+   both LPIPS columns; the LPIPS module card against CPU and its time.
+7. parity: one train step of a small object and a small scene configuration
    on the card (kernels) against the same step on the CPU (plain versions),
    same weights and batch; for the scene also each SparseUNet/PointFusion
    op over the step's geometry; the streaming splat with its gradients,
@@ -2169,6 +2177,203 @@ def phase_eval_parity():
     return launches["stream_bwd"]
 
 
+LPIPS_STEPS = 3
+# the LPIPS module on the card against the CPU, float32, TF32 off, on 8
+# image pairs at 128x128: the distances relative. Its gradient to the first
+# images is ill-conditioned (a feature vector near zero is divided by
+# sqrt(sum a^2 + 1e-10), which multiplies rounding by up to 1e5;
+# tests/test_torch_lpips.py), so each float32 gradient is held against a
+# float64 one on the card: the card's error, relative to the largest entry,
+# at most LPIPS_FLOAT64_MULTIPLE times the CPU's own
+TOL_LPIPS_CARD = 1e-4
+LPIPS_FLOAT64_MULTIPLE = 2.0
+
+
+def lpips_weights(path, seed=0):
+    """Random LPIPS weights from ``seed`` (convolutions with He's variance,
+    per-channel weights N(0.5, 1)) written as the ``.npz`` of the converted
+    tree (``/``-joined keys) that ``opt.lpips_weights`` reads."""
+    import numpy as np
+    from unipre3d_tpu_torch.utils.lpips import VGG_CHANNELS, VGG_SLICES
+    rng = np.random.default_rng(seed)
+    flat, cin = {}, 3
+    for idxs, chans in zip(VGG_SLICES, VGG_CHANNELS):
+        for idx, ch in zip(idxs, chans):
+            flat[f"vgg/conv{idx}/kernel"] = rng.normal(
+                0, math.sqrt(2.0 / (9 * cin)), (3, 3, cin, ch)).astype(
+                    np.float32)
+            flat[f"vgg/conv{idx}/bias"] = rng.normal(0, 0.05, ch).astype(
+                np.float32)
+            cin = ch
+    for i, chans in enumerate(VGG_CHANNELS):
+        flat[f"lin{i}"] = (rng.normal(0, 1, chans[-1]) + 0.5).astype(
+            np.float32)
+    np.savez(path, **flat)
+    return path
+
+
+def lpips_card_vs_cpu(params, device_line):
+    """The LPIPS module on the card against the CPU on 8 textured image
+    pairs at 128x128: distances, and the gradient to the first images
+    against a float64 one on the card, as near as the CPU's; then
+    its forward + backward at the step's shape (128 renders against their
+    ground truth) timed with CUDA events, TF32 off and on."""
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.utils.lpips import build_lpips, lpips_fn
+    rng = np.random.default_rng(1)
+    x = rng.uniform(-1, 1, (8, 3, 128, 128)).astype(np.float32)
+    y = np.clip(x + rng.normal(0, 0.3, x.shape), -1, 1).astype(np.float32)
+    out = {}
+    for dev, dtype in (("cpu", torch.float32), ("cuda", torch.float32),
+                       ("cuda", torch.float64)):
+        model = build_lpips(params, dev).to(dtype)
+        tx = torch.from_numpy(x).to(dev, dtype).requires_grad_(True)
+        d = model(tx, torch.from_numpy(y).to(dev, dtype))
+        d.sum().backward()
+        out[dev, dtype] = (d.detach().cpu().double().numpy(),
+                           tx.grad.cpu().double().numpy())
+    (dc, gc), (dg, gg), (_, g64) = out.values()
+
+    def rel(a, b):
+        return (float(np.abs(a - b).max() / np.abs(b).max()),
+                float(np.linalg.norm(a - b) / np.linalg.norm(b)))
+    d_err = rel(dg, dc)[0]
+    g_err, c_err, gc_err = rel(gg, g64), rel(gc, g64), rel(gg, gc)
+    log(f"[lpips] card vs CPU, 8 pairs at 128x128: distances {dc.tolist()}, "
+        f"max rel err {d_err:.3e} (tol {TOL_LPIPS_CARD}); gradient to the "
+        f"first images, max / L2 err of its largest / norm: card vs CPU "
+        f"{gc_err[0]:.3e} / {gc_err[1]:.3e}, card float32 vs float64 "
+        f"{g_err[0]:.3e} / {g_err[1]:.3e}, CPU float32 vs float64 "
+        f"{c_err[0]:.3e} / {c_err[1]:.3e} (card at most "
+        f"{LPIPS_FLOAT64_MULTIPLE}x the CPU's)")
+    if not d_err <= TOL_LPIPS_CARD or \
+            not g_err[0] <= LPIPS_FLOAT64_MULTIPLE * c_err[0]:
+        raise AssertionError(f"LPIPS card vs CPU: {d_err}, {g_err}, {c_err}")
+    model = build_lpips(params, "cuda")
+    r = torch.rand(128, 3, 128, 128, device="cuda", requires_grad=True)
+    g = torch.rand(128, 3, 128, 128, device="cuda")
+
+    def fwd_bwd():
+        lpips_fn(model, r * 2 - 1, g * 2 - 1).mean().backward()
+    times = {}
+    for tf32 in (False, True):
+        torch.backends.cudnn.allow_tf32 = tf32
+        times[tf32] = cuda_ms(fwd_bwd, 5)
+    torch.backends.cudnn.allow_tf32 = False
+    log(f"[lpips] forward + backward of 128 renders against their ground "
+        f"truth at 128x128: {times[False]:.3f} ms TF32 off, "
+        f"{times[True]:.3f} ms cuDNN TF32 on (the CLI's default) on "
+        f"{device_line}")
+
+
+def phase_warm_start_lpips_export(device_line, tmp):
+    """Export, warm start and LPIPS on the object run that ``phase_train``
+    left behind: its export (``export_checkpoint``) must load with
+    ``torch.load`` and equal, key for key and bit for bit, the export of
+    its checkpoint loaded into a model on the CPU (the EMA in place); a new
+    full-width default run (bf16, the cache) warm-starts from that ``.pth``
+    with random LPIPS weights and the term from step 1
+    (``opt.start_lpips_after=0``) for three steps and val: right after the
+    warm start its backbone, parameters and EMA, equals the exported
+    tensors; ``lpips`` is exactly 0 at the first step and finite and above
+    0 at the others; the dense pair launches; no NaN skip; then
+    ``eval.main`` over that run must give numbers in both LPIPS columns.
+    Then the LPIPS module on the card against the CPU and its time
+    (``lpips_card_vs_cpu``). Returns the dense pair's launch counts."""
+    import torch
+    import yaml
+    from unipre3d_tpu_torch import eval as eval_cli
+    from unipre3d_tpu_torch import export_checkpoint, train_network
+    from unipre3d_tpu_torch.export import export_predictor
+    from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+    from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
+    from unipre3d_tpu_torch.training import trainer
+    from unipre3d_tpu_torch.training.config import ConfigNode
+    from unipre3d_tpu_torch.utils.lpips import load_lpips_params
+    t0 = time.perf_counter()
+    obj_dir = os.path.join(tmp, "object")
+    pth = export_checkpoint.main([obj_dir, "--out",
+                                  os.path.join(tmp, "backbone.pth")])
+    exported = torch.load(pth, map_location="cpu", weights_only=False)
+    with open(os.path.join(obj_dir, ".hydra", "config.yaml")) as f:
+        cfg = ConfigNode.from_obj(yaml.safe_load(f))
+    model, state = trainer.create_train_state(cfg, device="cpu", seed=1)
+    # the checkpoint holds the card's DropPath generator
+    state.generator = torch.Generator(device="cuda")
+    ckpt_lib.load_checkpoint(os.path.join(obj_dir, "model_latest.ckpt"),
+                             model, state)
+    want = export_predictor({**model.state_dict(), **state.ema},
+                            "transformer")
+    del model, state
+    got = exported["model_state_dict"]
+    if set(got) != set(want) or exported["iteration"] != OBJECT_STEPS or             exported["backbone"] != "transformer" or any(
+                not torch.equal(got[k], torch.from_numpy(want[k]))
+                for k in want):
+        raise AssertionError("the object run's export differs from its "
+                             "checkpoint's export on the CPU")
+    log(f"[export] object run: {len(got)} tensors at iteration "
+        f"{exported['iteration']}, equal to the CPU export of its "
+        f"checkpoint ({time.perf_counter() - t0:.1f} s)")
+
+    prefix = "point_network.encoder."
+    backbone = {k: v for k, v in got.items() if k.startswith(prefix)}
+    warm = train_network.warm_start
+    started = []
+
+    def checked_warm_start(model, state, path):
+        n = warm(model, state, path)
+        sd_now = model.state_dict()
+        for tag, weights in (("parameters", sd_now),
+                             ("EMA", {**sd_now, **state.ema})):
+            now = export_predictor(weights, "transformer")
+            bad = [k for k, v in backbone.items()
+                   if not torch.equal(v, torch.from_numpy(now[k]))]
+            if bad:
+                raise AssertionError(f"warm start: the {tag} differ from the "
+                                     f"export at {bad[:3]}")
+        started.append(n)
+        return n
+
+    npz = lpips_weights(os.path.join(tmp, "lpips.npz"))
+    warm_dir = os.path.join(tmp, "warm_lpips")
+    train_network.warm_start = checked_warm_start
+    try:
+        result, launches = run_train(
+            OBJECT_ARGV + ["--output-dir", warm_dir,
+                           f"opt.pretrained_ckpt={pth}",
+                           f"opt.lpips_weights={npz}",
+                           "opt.start_lpips_after=0",
+                           f"opt.iterations={LPIPS_STEPS}",
+                           "logging.loss_log=1",
+                           f"logging.val_log={LPIPS_STEPS}",
+                           "logging.loop_log=100000"],
+            {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD},
+            device_line, "warm start + LPIPS", steps=LPIPS_STEPS)
+    finally:
+        train_network.warm_start = warm
+    peak = torch.cuda.max_memory_allocated() / 2**30
+    lp = result.get("lpips", [])
+    if started != [len(backbone)] or len(lp) != LPIPS_STEPS or lp[0] != 0.0             or not all(math.isfinite(v) and v > 0 for v in lp[1:]):
+        raise AssertionError(f"warm start {started} of {len(backbone)} "
+                             f"tensors; lpips {lp}")
+    total = [a + b for a, b in zip(result["cache_ms"], result["step_ms"])]
+    log(f"[lpips] warm-started run: lpips {lp}; attach + step ms "
+        f"{[round(t, 3) for t in total]} (step 1 gated off, LPIPS in steps "
+        f"2-{LPIPS_STEPS}); peak device memory {peak:.2f} GiB on "
+        f"{device_line}")
+    sd.DENSE_FWD.launches = 0
+    scores = eval_cli.main([warm_dir])
+    if not all(scores[k] is not None and math.isfinite(scores[k])
+               for k in ("LPIPS_cond", "LPIPS_novel", "PSNR_novel")):
+        raise AssertionError(f"warm-started run's eval: {scores}")
+    log(f"[eval] warm-started run with LPIPS (dense launches "
+        f"{sd.DENSE_FWD.launches}): {scores}")
+    lpips_card_vs_cpu(load_lpips_params(npz), device_line)
+    log(f"[lpips] phase {time.perf_counter() - t0:.1f} s")
+    return launches
+
+
 def build_kernels(names):
     """Build every kernel library at once (one nvcc each, in parallel) and
     print ptxas' report."""
@@ -2246,6 +2451,8 @@ def main():
         for k, v in phase_train_ptv3(smi, tmp).items():
             launches[k] = launches.get(k, 0) + v
         phase_test_renders(smi, tmp)
+        for k, v in phase_warm_start_lpips_export(smi, tmp).items():
+            launches[k] += v
     phase_parity()
     phase_parity_backbones()
     phase_parity_ptv3()

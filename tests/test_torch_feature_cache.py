@@ -47,7 +47,8 @@ from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.training.feature_cache import (DeviceVAECache,
                                                        make_feature_fn)
 from unipre3d_tpu_torch.weights import jax_to_state_dict
-from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+from test_torch_utils import (  # noqa: F401
+    one_torch_thread, run_dir, trimmed_heap)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -246,17 +247,17 @@ def test_cached_step_matches_live_loss(setup, dtype):
         assert torch.equal(a, b)
 
 
-def test_cli_default_run_hits_the_cache(tmp_path):
+def test_cli_default_run_hits_the_cache(run_dir):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path), "opt.iterations=3",
+         "--output-dir", str(run_dir), "opt.iterations=3",
          "opt.batch_size=8", "logging.loss_log=1", "logging.val_log=100"]
         + SMALL[:1] + SMALL[2:])
     assert res["compute_dtype"] == "bfloat16"
     assert res["hit_rate"] > 0 and res["cache_counts"]["hits"] > 0
     assert len(res["losses"]) == 3 and len(res["cache_ms"]) == 3
     assert all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
-    with open(os.path.join(tmp_path, "metrics.jsonl")) as f:
+    with open(os.path.join(run_dir, "metrics.jsonl")) as f:
         lines = [json.loads(line) for line in f]
     train = [x for x in lines if "train/loss" in x]
     assert [x["step"] for x in train] == [1, 2, 3]

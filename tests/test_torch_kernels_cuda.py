@@ -19,7 +19,11 @@ rounding into bf16 (half an ulp), and the backward bit for bit across two
 launches.
 One full-width PTv3 forward and backward (``ptv3_pretraining``, default
 run) on the binned route: each binned kernel launches once, the loss and
-every gradient are finite.
+every gradient are finite. One full-width ``transformer_pretraining`` step
+(default run) warm-started from a reference-named checkpoint, with random
+LPIPS weights and the term on: the backbone equals the checkpoint's after
+the warm start, each dense kernel launches once, ``lpips`` is finite and
+above 0, and no NaN skip.
 chip_smoke.py holds the same kernels at the main path's full shapes.
 """
 
@@ -699,3 +703,65 @@ def test_ptv3_full_width_step_launches_the_binned_pair(cuda):
     assert len(grads) > 400
     for n, gr in grads.items():
         assert bool(torch.isfinite(gr).all()), n
+
+
+def random_lpips_params(seed=0):
+    """Random LPIPS parameters in the converted tree's layout (HWIO
+    convolutions with He's variance, per-channel weights N(0.5, 1))."""
+    from unipre3d_tpu_torch.utils.lpips import VGG_CHANNELS, VGG_SLICES
+    rng = np.random.default_rng(seed)
+    vgg, cin = {}, 3
+    for idxs, chans in zip(VGG_SLICES, VGG_CHANNELS):
+        for idx, ch in zip(idxs, chans):
+            vgg[f"conv{idx}"] = {
+                "kernel": rng.normal(0, math.sqrt(2.0 / (9 * cin)),
+                                     (3, 3, cin, ch)).astype(np.float32),
+                "bias": rng.normal(0, 0.05, ch).astype(np.float32)}
+            cin = ch
+    return {"vgg": vgg, **{f"lin{i}": (rng.normal(0, 1, c[-1]) + 0.5).astype(
+        np.float32) for i, c in enumerate(VGG_CHANNELS)}}
+
+
+def test_warm_started_lpips_step_launches_the_dense_pair(cuda, tmp_path):
+    """One full-width ``transformer_pretraining`` step on the card (batch
+    32, 1,024 points, 1 + 4 views at 128x128, the default bf16 compute
+    dtype): the model warm-starts from the reference-named export of
+    another model of the config (its backbone and EMA then equal the
+    export's), and takes the step with random LPIPS weights and the gate
+    open (``opt.start_lpips_after=-1``): each dense kernel launches once,
+    ``lpips`` is finite and above 0 and the update is applied."""
+    from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
+    from unipre3d_tpu_torch.export import (export_predictor,
+                                           save_torch_checkpoint)
+    from unipre3d_tpu_torch.train_network import warm_start
+    from unipre3d_tpu_torch.training import trainer
+    from unipre3d_tpu_torch.training.config import load_config
+    from unipre3d_tpu_torch.utils.lpips import build_lpips
+    cfg = load_config("transformer_pretraining", overrides=[
+        "data.dataset_root=synthetic", "opt.start_lpips_after=-1"])
+    dtype = trainer.compute_dtype_of(cfg)
+    source, _ = trainer.create_train_state(cfg, device=cuda, seed=1,
+                                           dtype=dtype)
+    path = str(tmp_path / "backbone.pth")
+    save_torch_checkpoint(path, export_predictor(source.state_dict(),
+                                                 "transformer"))
+    model, state = trainer.create_train_state(cfg, device=cuda, seed=0,
+                                              dtype=dtype)
+    n = warm_start(model, state, path)
+    assert n > 100
+    for name, p in source.named_parameters():
+        if name.startswith("point_network.encoder."):
+            assert torch.equal(dict(model.named_parameters())[name], p), name
+            assert torch.equal(state.ema[name], p), name
+    del source
+    loader = Loader(get_dataset(cfg, "train", cuda), 32, seed=0)
+    batch = batch_to(next(loader.epoch(0)), cuda)
+    loader.close()
+    step = trainer.make_train_step(cfg, model,
+                                   build_lpips(random_lpips_params(), cuda))
+    before = (sd.DENSE_FWD.launches, sd.DENSE_BWD.launches)
+    metrics = step(state, batch)
+    assert (sd.DENSE_FWD.launches - before[0],
+            sd.DENSE_BWD.launches - before[1]) == (1, 1)
+    assert math.isfinite(metrics["lpips"]) and metrics["lpips"] > 0
+    assert math.isfinite(metrics["loss"]) and metrics["nan_skipped"] == 0.0

@@ -77,7 +77,8 @@ from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_scene_step import adam_state, shared_across_workers
-from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+from test_torch_utils import (  # noqa: F401
+    one_torch_thread, run_dir, trimmed_heap)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -493,17 +494,17 @@ def test_seg_head_dropout_rate_and_generator():
 
 
 @pytest.mark.parametrize("backbone", BACKBONES)
-def test_cli_trains_on_cpu(tmp_path, backbone):
+def test_cli_trains_on_cpu(run_dir, backbone):
     """Full-size backbone, 1024 points, tiny VAE; float32 (bfloat16 is
     slow on the CPU; chip_smoke.py trains the default run on the card)."""
     res = train_network.main(
         ["--config-name", f"{backbone}_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path), "opt.iterations=2",
+         "--output-dir", str(run_dir), "opt.iterations=2",
          "logging.loss_log=1", "data.training_resolution=32",
          "opt.batch_size=1", "data.dataset_root=synthetic",
          "tpu.compute_dtype=float32", "tpu.vae_cache_entries=0", TINY_VAE])
     assert len(res["losses"]) == 2
     assert all(math.isfinite(x) for x in res["losses"] + res["grad_norms"])
     assert res["nan_skipped"] == [0.0, 0.0]
-    assert (tmp_path / "model_latest.ckpt").exists()
+    assert (run_dir / "model_latest.ckpt").exists()
 

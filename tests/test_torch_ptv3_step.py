@@ -49,7 +49,8 @@ from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_scene_step import (adam_state, np_tree, scene_batch,
                                    shared_across_workers)
-from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+from test_torch_utils import (  # noqa: F401
+    one_torch_thread, run_dir, trimmed_heap)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -162,13 +163,13 @@ def test_ptv3_step_bn_stats_and_ema(step):
                      / step["jp"][k].abs().max()) < 1e-4, k
 
 
-def test_cli_trains_ptv3_on_cpu(tmp_path):
+def test_cli_trains_ptv3_on_cpu(run_dir):
     """The entry point on the published PTv3 (DropPath and the order
     shuffle on, drawn from the step's generator): two finite steps, no NaN
     skip, the geometry built before each step."""
     res = train_network.main(
         ["--config-name", "ptv3_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path), "opt.iterations=2",
+         "--output-dir", str(run_dir), "opt.iterations=2",
          "logging.loss_log=1", "tpu.compute_dtype=float32",
          "tpu.vae_cache_entries=0"] + SCENE)
     assert len(res["losses"]) == 2

@@ -55,7 +55,8 @@ from unipre3d_tpu_torch.data import scannet as tscannet
 from unipre3d_tpu_torch.data import shapenet as tshapenet
 from unipre3d_tpu_torch.data import transforms as TT
 from unipre3d_tpu_torch.training.config import load_config
-from test_torch_utils import one_torch_thread, trimmed_heap  # noqa: F401
+from test_torch_utils import (  # noqa: F401
+    one_torch_thread, run_dir, trimmed_heap)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -364,10 +365,10 @@ def test_factory_selects_the_real_readers(shapenet_root, scannet_roots):
 
 
 def test_cli_trains_on_fabricated_trees(shapenet_root, scannet_roots,
-                                        tmp_path):
+                                        run_dir):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path / "shapenet"), "opt.iterations=1",
+         "--output-dir", str(run_dir / "shapenet"), "opt.iterations=1",
          "opt.batch_size=2", f"data.dataset_root={shapenet_root}",
          "model.aug=true",
          "model.vae_overrides={block_out_channels: [32, 32, 32, 32], "
@@ -378,7 +379,7 @@ def test_cli_trains_on_fabricated_trees(shapenet_root, scannet_roots,
     assert math.isfinite(res["val"][0]["psnr_novel"])
     res = train_network.main(
         ["--config-name", "sparseunet_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path / "scannet"), "opt.iterations=1",
+         "--output-dir", str(run_dir / "scannet"), "opt.iterations=1",
          "opt.batch_size=1", f"data.pts_dataset_root={scannet_roots[0]}",
          f"data.rgb_dataset_root={scannet_roots[1]}"] + SCANNET_SMALL)
     assert len(res["losses"]) == 1 and math.isfinite(res["losses"][0])

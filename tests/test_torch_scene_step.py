@@ -64,7 +64,7 @@ from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_utils import (  # noqa: F401
-    one_torch_thread, release_memory, trimmed_heap)
+    one_torch_thread, release_memory, run_dir, trimmed_heap)
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -240,10 +240,10 @@ def test_auto_route_at_scene_size_is_not_ported():
     assert bool(torch.isfinite(img).all()) and float(img.min()) < 0.99
 
 
-def test_cli_trains_scene_on_cpu(tmp_path):
+def test_cli_trains_scene_on_cpu(run_dir):
     res = train_network.main(
         ["--config-name", "sparseunet_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path), "opt.iterations=2",
+         "--output-dir", str(run_dir), "opt.iterations=2",
          "logging.loss_log=1", "tpu.compute_dtype=float32",
          "tpu.vae_cache_entries=0",
          "tpu.raster_tile_capacity=1024"] + SCENE)

@@ -39,7 +39,7 @@ from unipre3d_tpu_torch.training import trainer
 from unipre3d_tpu_torch.training.config import load_config
 from unipre3d_tpu_torch.weights import jax_to_state_dict
 from test_torch_splat_stream import one_torch_thread  # noqa: F401
-from test_torch_utils import trimmed_heap  # noqa: F401
+from test_torch_utils import run_dir, trimmed_heap  # noqa: F401
 
 pytestmark = pytest.mark.usefixtures("one_torch_thread")
 
@@ -213,10 +213,10 @@ def test_synthetic_dataset_and_loader_are_seeded():
     assert batch["point_cloud"].shape == (4, 1024, 3)
 
 
-def test_cli_trains_on_cpu(tmp_path):
+def test_cli_trains_on_cpu(run_dir):
     res = train_network.main(
         ["--config-name", "transformer_pretraining", "--device", "cpu",
-         "--output-dir", str(tmp_path), "opt.iterations=2",
+         "--output-dir", str(run_dir), "opt.iterations=2",
          "logging.loss_log=1", "tpu.compute_dtype=float32",
          "tpu.vae_cache_entries=0"] + SMALL)
     assert len(res["losses"]) == 2

@@ -4,13 +4,15 @@ Same numpy inputs through both; float32 on the CPU. Tolerances: 1e-6
 absolute for elementwise maths of O(1) values (float32 rounding of
 reassociated expressions), 1e-5 relative for means over images.
 
-Also the heap fixture every port test module takes (``trimmed_heap``) and
-the thread fixture of the torch-heavy ones (``one_torch_thread``).
+Also the heap fixture every port test module takes (``trimmed_heap``), the
+thread fixture of the torch-heavy ones (``one_torch_thread``) and the CLI
+tests' output directory (``run_dir``).
 """
 
 import ctypes
 import gc
 import math
+import shutil
 
 import jax.numpy as jnp
 import numpy as np
@@ -45,6 +47,17 @@ def trimmed_heap():
     this fixture."""
     yield
     release_memory()
+
+
+@pytest.fixture
+def run_dir(tmp_path):
+    """The output directory of a CLI run, removed after its test: a run's
+    checkpoints hold the model several times over (0.1-2 GB with the full
+    SD-VAE), and pytest keeps every test's temporary directory after the
+    session; without this a whole run of the suite leaves ~14 GB of them,
+    ~6 GB with it."""
+    yield tmp_path / "run"
+    shutil.rmtree(tmp_path / "run", ignore_errors=True)
 
 
 @pytest.fixture(scope="module")

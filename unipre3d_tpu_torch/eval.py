@@ -11,10 +11,11 @@ checkpoint, and scores every example of the split with the eval step
 views and of the novel views, all-black ground-truth views left out.
 Writes one line per example to ``scores.txt`` and the means to
 ``test_scores.json``; ``--save-vis N`` saves render and GT PNGs of the first
-N examples (PIL, imported there). LPIPS needs converted VGG weights, which
-the repository does not hold: its keys stay ``None``, as the JAX eval gives
-them without weights. One process on one device (the CUDA card unless
-``--device`` names another).
+N examples (PIL, imported there). With ``opt.lpips_weights`` set (converted
+VGG weights; utils/lpips.py) it also scores LPIPS of both view sets,
+in float32; without it the LPIPS keys stay ``None``, as the JAX eval gives
+them. A set path that does not exist raises (the JAX eval skips it). One
+process on one device (the CUDA card unless ``--device`` names another).
 """
 
 from __future__ import annotations
@@ -29,28 +30,37 @@ import yaml
 
 from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
+from unipre3d_tpu_torch.train_network import existing_path
 from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
 from unipre3d_tpu_torch.training.config import ConfigNode
 from unipre3d_tpu_torch.training.trainer import (create_train_state,
                                                  make_eval_step)
 from unipre3d_tpu_torch.training.video import to_uint8
 from unipre3d_tpu_torch.utils import losses as loss_lib
+from unipre3d_tpu_torch.utils.lpips import (build_lpips, load_lpips_params,
+                                            lpips_fn)
 
 SCORE_KEYS = ("PSNR_cond", "SSIM_cond", "LPIPS_cond", "PSNR_novel",
               "SSIM_novel", "LPIPS_novel")
 
 
 class Metricator:
-    """PSNR and SSIM of every view of one example, and which ground-truth
-    views are all black, in chunks of at most ``CHUNK`` views."""
+    """PSNR and SSIM (and LPIPS, given an ``lpips`` module) of every view
+    of one example, and which ground-truth views are all black, in chunks
+    of at most ``CHUNK`` views."""
 
     CHUNK = 100
+
+    def __init__(self, lpips=None):
+        self.lpips = lpips
 
     @torch.no_grad()
     def compute_metrics_batched(self, rendered, gt):
         """rendered/gt [V, 3, H, W] tensors -> dict of numpy [V]: psnr,
-        ssim, black."""
+        ssim, black (and lpips)."""
         out = {"psnr": [], "ssim": [], "black": []}
+        if self.lpips is not None:
+            out["lpips"] = []
         for s in range(0, rendered.shape[0], self.CHUNK):
             r, g = rendered[s:s + self.CHUNK], gt[s:s + self.CHUNK]
             mse = ((r - g) ** 2).mean(dim=(1, 2, 3))
@@ -58,6 +68,9 @@ class Metricator:
                                                                    1e-12)))
             out["ssim"].append(loss_lib.ssim(r, g, size_average=False))
             out["black"].append((g == 0).all(dim=(1, 2, 3)))
+            if self.lpips is not None:
+                out["lpips"].append(lpips_fn(self.lpips, r * 2 - 1,
+                                             g * 2 - 1))
         return {k: torch.cat(v).cpu().numpy() for k, v in out.items()}
 
 
@@ -67,14 +80,15 @@ def _mean(values):
 
 
 def evaluate_dataset(model, eval_step, state, loader, cfg, out_folder: str,
-                     save_vis: int = 0):
+                     save_vis: int = 0, lpips=None):
     """Score every example of ``loader.epoch(0)`` (numpy batches of one
     example) -> the means over examples under SCORE_KEYS (None where no
-    view counted); writes ``scores.txt`` (example, its novel PSNR, SSIM,
-    LPIPS) and with ``save_vis`` the PNGs of the first examples."""
+    view counted, and LPIPS without an ``lpips`` module); writes
+    ``scores.txt`` (example, its novel PSNR, SSIM, LPIPS) and with
+    ``save_vis`` the PNGs of the first examples."""
     n_in = int(cfg.data.input_images)
     dev = next(model.parameters()).device
-    metricator = Metricator()
+    metricator = Metricator(lpips)
     agg = {k: [] for k in SCORE_KEYS}
     scores_path = os.path.join(out_folder, "scores.txt")
     open(scores_path, "w").close()
@@ -99,7 +113,8 @@ def evaluate_dataset(model, eval_step, state, loader, cfg, out_folder: str,
             side = "cond" if r < n_in else "novel"
             per[f"PSNR_{side}"].append(float(m["psnr"][r]))
             per[f"SSIM_{side}"].append(float(m["ssim"][r]))
-            per[f"LPIPS_{side}"].append(None)
+            per[f"LPIPS_{side}"].append(
+                float(m["lpips"][r]) if "lpips" in m else None)
         for k in SCORE_KEYS:
             v = _mean(per[k])
             if v is not None:
@@ -131,6 +146,7 @@ def main(argv=None) -> dict:
     with open(os.path.join(args.experiment_path, ".hydra",
                            "config.yaml")) as f:
         cfg = ConfigNode.from_obj(yaml.safe_load(f))
+    lpips_path = existing_path(cfg, "lpips_weights")
     loader = Loader(get_dataset(cfg, args.split, device), 1, shuffle=False,
                     drop_last=False)
     model, state = create_train_state(cfg, device=device,
@@ -138,9 +154,13 @@ def main(argv=None) -> dict:
     ckpt = os.path.join(args.experiment_path, args.ckpt)
     state, _ = ckpt_lib.load_checkpoint(ckpt, model, state)
     print(f"[eval] loaded {ckpt} at step {state.step}", flush=True)
+    lpips = None
+    if lpips_path:
+        lpips = build_lpips(load_lpips_params(lpips_path), device)
+        print(f"[eval] LPIPS weights loaded from {lpips_path}", flush=True)
     scores = evaluate_dataset(model, make_eval_step(cfg, model), state,
                               loader, cfg, args.experiment_path,
-                              args.save_vis)
+                              args.save_vis, lpips)
     print(json.dumps(scores, indent=2))
     out = os.path.join(args.experiment_path, "test_scores.json")
     with open(out, "w") as f:

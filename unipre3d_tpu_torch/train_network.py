@@ -35,6 +35,16 @@ novel PSNR is the best yet; every ``logging.loop_log`` steps it renders
 the test videos of ``opt.test_generation_num`` test examples
 (training/video.py). At scene level each batch's SparseUNet or PTv3 geometry
 is built before its step and timed apart, as is the cache's attach.
+
+``opt.pretrained_ckpt`` warm-starts the transformer backbone from a
+reference-named ``.pth`` (``warm_start``; a resume from
+``model_latest.ckpt`` overrides it), and ``opt.lpips_weights`` adds the
+LPIPS term to the loss after ``opt.start_lpips_after`` steps
+(utils/lpips.py; an ``.npz`` of the converted tree or a ``.pth`` of
+torchvision's and lpips' weights). Unlike the JAX CLI, which skips a path
+that does not exist, a set path that does not exist raises, and so does
+``opt.pretrained_ckpt`` on another backbone, which JAX ignores.
+``data.mix_prob > 0`` raises, as in the JAX CLI.
 """
 
 from __future__ import annotations
@@ -88,6 +98,47 @@ def validate(eval_step, state, loader, device) -> dict:
             "ssim_novel": float(np.mean(ssims)) if ssims else 0.0}
 
 
+def existing_path(cfg, key: str):
+    """``opt.<key>`` when set, else None; a set path must exist."""
+    path = str(cfg.opt.get(key) or "")
+    if not path:
+        return None
+    if not os.path.exists(path):
+        raise FileNotFoundError(f"opt.{key}: no file {path!r}")
+    return path
+
+
+def warm_start(model, state, path: str) -> int:
+    """Load the transformer backbone of a reference-named torch checkpoint
+    (``{"model_state_dict": ...}`` or a bare state dict) into the model's
+    parameters, its BatchNorm statistics and the EMA, as the JAX CLI does
+    (reference ``opt.pretrained_ckpt``, model/point_predictor.py:44-53,
+    strict=False: keys it lacks keep their values). Returns the number of
+    checkpoint tensors under ``point_network.encoder.``."""
+    from unipre3d_tpu_torch import weights
+    from unipre3d_tpu_torch.export import import_transformer_backbone
+    from unipre3d_tpu_torch.training.trainer import split_frozen
+    sd = torch.load(path, map_location="cpu", weights_only=False)
+    sd = sd.get("model_state_dict", sd)
+    prefix = "point_network.encoder"
+    own = {k: v for k, v in model.state_dict().items()
+           if k.startswith(prefix + ".")}
+    params, stats = weights.state_dict_to_jax(own)
+    import_transformer_backbone(sd, params["point_network"]["encoder"],
+                                stats["point_network"]["encoder"],
+                                prefix=prefix)
+    new = weights.jax_to_state_dict(params, stats)
+    if set(new) != set(own):
+        raise ValueError(f"{path}: tensors the backbone has no place for: "
+                         f"{sorted(set(new) ^ set(own))[:5]}")
+    with torch.no_grad():
+        for k, v in new.items():
+            own[k].copy_(v)
+        for n, p in split_frozen(model)[0]:
+            state.ema[n].copy_(p)
+    return sum(k.startswith(prefix + ".") for k in sd)
+
+
 def make_cache(cfg, model, device):
     """The VAE feature cache of a config: ``tpu.vae_cache_entries`` slots
     of the conditioning views' ``decoder_block_3`` map when the config uses
@@ -109,8 +160,9 @@ def make_cache(cfg, model, device):
 def main(argv=None) -> dict:
     """Run the training loop; returns per-step ``losses``, ``psnrs``,
     ``grad_norms``, ``nan_skipped`` (1.0 where the NaN skip dropped the
-    update), ``step_ms`` (host clock around each synchronized step), and at
-    scene level ``geometry_ms`` (the geometry build before the step) and
+    update), with LPIPS weights ``lpips`` (0 before the gate), ``step_ms``
+    (host clock around each synchronized step), and at scene level
+    ``geometry_ms`` (the geometry build before the step) and
     ``valid_rows`` (valid voxel rows, i.e. gaussians, of the batch), for
     PTv3 ``stage_rows`` (each stage's valid rows) and ``pool_dropped``
     (each pooling's parents dropped past its capacity), on the
@@ -132,6 +184,19 @@ def main(argv=None) -> dict:
         "experiments_out", time.strftime("%Y-%m-%d/%H-%M-%S"))
     os.makedirs(out_dir, exist_ok=True)
     save_config(cfg, os.path.join(out_dir, ".hydra", "config.yaml"))
+    if float(cfg.data.get("mix_prob", 0.0)) > 0.0:
+        # Mix3d merges only the point-cloud keys: with rendering
+        # supervision the mixed cloud would train against scene A's
+        # unmixed cameras and GT images (JAX's CLI raises alike)
+        raise ValueError(
+            "data.mix_prob > 0 is unsupported for rendering pretraining "
+            "(half-mixed clouds vs unmixed render targets); use the "
+            "segmentation fine-tune engine for Mix3d.")
+    pretrained = existing_path(cfg, "pretrained_ckpt")
+    if pretrained and cfg.model.backbone_type != "transformer":
+        raise ValueError(f"opt.pretrained_ckpt warm-starts the transformer "
+                         f"backbone only, not {cfg.model.backbone_type!r}")
+    lpips_path = existing_path(cfg, "lpips_weights")
     seed = int(cfg.general.random_seed)
     t0 = time.perf_counter()
     batch_size = int(cfg.opt.batch_size)
@@ -144,9 +209,19 @@ def main(argv=None) -> dict:
     compute_dtype = compute_dtype_of(cfg)
     model, state = create_train_state(cfg, device=device, seed=seed,
                                       dtype=compute_dtype)
+    if pretrained:
+        n = warm_start(model, state, pretrained)
+        print(f"[train] warm-started backbone from {pretrained} ({n} "
+              f"tensors)", flush=True)
+    lpips = None
+    if lpips_path:
+        from unipre3d_tpu_torch.utils.lpips import (build_lpips,
+                                                    load_lpips_params)
+        lpips = build_lpips(load_lpips_params(lpips_path), device)
+        print(f"[train] LPIPS weights loaded from {lpips_path}", flush=True)
     cache = make_cache(cfg, model, device)
     n_in = int(cfg.data.input_images)
-    train_step = make_train_step(cfg, model)
+    train_step = make_train_step(cfg, model, lpips)
     eval_step = make_eval_step(cfg, model)
     geometry_fn = make_geometry_fn(cfg, model)
     n_params = sum(p.numel() for p in model.parameters())
@@ -211,6 +286,8 @@ def main(argv=None) -> dict:
         result["psnrs"].append(metrics["psnr"])
         result["grad_norms"].append(metrics["grad_norm"])
         result["nan_skipped"].append(metrics["nan_skipped"])
+        if "lpips" in metrics:
+            result.setdefault("lpips", []).append(metrics["lpips"])
         for k in ("dups", "budget_dropped", "cap_dropped"):
             if k in metrics:
                 result.setdefault(k, []).append(int(metrics[k]))

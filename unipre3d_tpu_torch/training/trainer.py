@@ -3,7 +3,8 @@
 Port of unipre3d_tpu/training/trainer.py: backbone forward (frozen VAE
 under ``torch.no_grad``), all B*V supervision renders in one splat launch
 each way, the photometric loss, then AdamW(eps 1e-15) with StepLR, clip
-1.0, the NaN skip and EMA. The optimizer is written out to reproduce the
+1.0, the NaN skip and EMA, with the LPIPS term when LPIPS weights are
+given. The optimizer is written out to reproduce the
 optax chain of the JAX package exactly (``AdamW`` below); the step updates
 the model, optimizer, BatchNorm running stats and EMA in place (torch
 idiom; the JAX step returns a new state). The eval step renders every view
@@ -55,6 +56,7 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_binned import \
 from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
     rasterize_dense_batched
 from unipre3d_tpu_torch.utils import losses as loss_lib
+from unipre3d_tpu_torch.utils.lpips import lpips_fn
 
 DENSE_MAX_N = 4096   # the dense route serves up to this many gaussians
 TRAIN_IMPLS = ("auto", "pallas_dense", "pallas_binned", "xla")
@@ -321,12 +323,24 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
     return torch.func.functional_call(model, params, args, kwargs)
 
 
-def make_train_step(cfg, model: GaussianSplatPredictor):
+def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
     """-> ``train_step(state, batch) -> metrics`` (updates in place): loss,
     psnr, grad_norm, nan_skipped, and on the binned route the render's
-    ``dups``, ``budget_dropped`` and ``cap_dropped``."""
+    ``dups``, ``budget_dropped`` and ``cap_dropped``.
+
+    With an ``lpips`` module (utils/lpips.py) and ``opt.lambda_lpips`` not
+    0, the loss gains ``lambda_lpips`` x the mean LPIPS of the supervision
+    renders against their ground truth, both mapped to [-1, 1], reported as
+    ``lpips``, as the JAX step does (unipre3d_tpu/training/trainer.py:
+    loss_fn). The term is gated on the step count before its increment,
+    strictly: ``state.step > opt.start_lpips_after``; off the gate
+    ``lpips`` is 0 and the VGG does not run."""
     bg_color = bg_color_of(cfg)
     n_in = int(cfg.data.input_images)
+    lambda_lpips = float(cfg.opt.get("lambda_lpips", 0.01))
+    start_lpips_after = int(cfg.opt.get("start_lpips_after", 0))
+    if lambda_lpips == 0.0:
+        lpips = None
     ema_cfg = cfg.opt.ema
     use_ema = bool(ema_cfg.use)
     ema_beta = float(ema_cfg.beta)
@@ -347,8 +361,17 @@ def make_train_step(cfg, model: GaussianSplatPredictor):
         with record_function("step/render"):
             rendered = render_supervision_views(gaussians, batch, cfg,
                                                 bg_color, render_stats)
-            loss, metrics = compute_loss(
-                rendered, batch["gt_images"][:, n_in:], cfg, bg_color)
+            gt = batch["gt_images"][:, n_in:]
+            loss, metrics = compute_loss(rendered, gt, cfg, bg_color)
+        if lpips is not None:
+            with record_function("step/lpips"):
+                if state.step > start_lpips_after:
+                    lp = lpips_fn(lpips, rendered.flatten(0, 1) * 2 - 1,
+                                  gt.flatten(0, 1) * 2 - 1).mean()
+                else:
+                    lp = torch.zeros((), device=loss.device)
+                loss = loss + lambda_lpips * lp
+                metrics.update(lpips=lp, loss=loss)
         with record_function("step/backward"):
             grads = torch.autograd.grad(loss, params)
         with record_function("step/optimizer"):
