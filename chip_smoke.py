@@ -81,7 +81,20 @@ Phases, all of them, in order; any failure exits non-zero:
    after the warm start, ``lpips`` 0 at the first step and above 0 after,
    the dense pair launched, no NaN skip) and ``eval.main`` over it with
    both LPIPS columns; the LPIPS module card against CPU and its time.
-7. parity: one train step of a small object and a small scene configuration
+7. finetune (``phase_finetune``): the downstream fine-tuning engine. A
+   full-width SparseUNet with 20 classes (ScanNet20), its encoder from the
+   scene run's checkpoint, fine-tuned on synthetic labelled rooms through
+   Pointcept's ScanNet SpUNet recipe (the transforms from the registry,
+   SphereCrop and padding at 100,000 rows, Mix3d at 0.8, batch 2, SGD
+   nesterov with a cosine schedule) by ``FinetuneTrainer`` and its hooks
+   for 2 epochs of 3 steps: each step's geometry build and step time, the
+   evaluator's and the profiler's readings (peak memory, the device's
+   busy share over steps 2-6), the run's files, a bit-exact restore of
+   ``model_latest``; ``SemSegTester`` over a val room at full size
+   (fragment voting, 2 TTA pipelines); the object testers on a PCM
+   part-segmentation network after one engine step (the scan pair
+   launches on this path); one narrow fine-tune step card against CPU.
+8. parity: one train step of a small object and a small scene configuration
    on the card (kernels) against the same step on the CPU (plain versions),
    same weights and batch; for the scene also each SparseUNet/PointFusion
    op over the step's geometry; the streaming splat with its gradients,
@@ -2374,6 +2387,631 @@ def phase_warm_start_lpips_export(device_line, tmp):
     return launches
 
 
+# -- phase finetune: the downstream fine-tuning engine --------------------
+
+SCANNET20 = ("wall", "floor", "cabinet", "bed", "chair", "sofa", "table",
+             "door", "window", "bookshelf", "picture", "counter", "desk",
+             "curtain", "refrigerator", "shower curtain", "toilet", "sink",
+             "bathtub", "otherfurniture")
+FT_ROWS = 100_000          # SphereCrop's cap and the padded rows
+FT_GRID = 0.02
+FT_DENSITY = 2500.0        # sampled points per m² of surface
+FT_TRAIN_SCENES, FT_VAL_SCENES, FT_BATCH, FT_EPOCHS = 6, 2, 2, 2
+FT_MIX_PROB = 0.8          # Pointcept's ScanNet recipes
+FT_LR = 0.05
+# Pointcept's configs/scannet/semseg-spunet-v1m1-0-base.py, through the
+# port's transforms (the JAX package's classes and arguments)
+FT_TRAIN_PIPELINE = [
+    ["CenterShift", {"apply_z": True}],
+    ["RandomDropout", {"dropout_ratio": 0.2,
+                       "dropout_application_ratio": 0.2}],
+    ["RandomRotate", {"angle": [-1, 1], "axis": "z", "center": [0, 0, 0],
+                      "p": 0.5}],
+    ["RandomRotate", {"angle": [-1 / 64, 1 / 64], "axis": "x", "p": 0.5}],
+    ["RandomRotate", {"angle": [-1 / 64, 1 / 64], "axis": "y", "p": 0.5}],
+    ["RandomScale", {"scale": [0.9, 1.1]}],
+    ["RandomFlip", {"p": 0.5}],
+    ["RandomJitter", {"sigma": 0.005, "clip": 0.02}],
+    ["ElasticDistortion", {"distortion_params": [[0.2, 0.4], [0.8, 1.6]]}],
+    ["ChromaticAutoContrast", {"p": 0.2, "blend_factor": None}],
+    ["ChromaticTranslation", {"p": 0.95, "ratio": 0.05}],
+    ["ChromaticJitter", {"p": 0.95, "std": 0.05}],
+    ["GridSample", {"grid_size": FT_GRID, "hash_type": "fnv",
+                    "mode": "train", "return_grid_coord": True}],
+    ["SphereCrop", {"point_max": FT_ROWS, "mode": "random"}],
+    ["CenterShift", {"apply_z": False}],
+    ["NormalizeColor", {}],
+    ["ShufflePoint", {}],
+    ["ToTensor", {}],
+    ["Collect", {"keys": ("coord", "grid_coord", "segment"),
+                 "feat_keys": ("color", "normal")}],
+]
+FT_VAL_PIPELINE = [
+    ["CenterShift", {"apply_z": True}],
+    ["GridSample", {"grid_size": FT_GRID, "hash_type": "fnv",
+                    "mode": "train", "return_grid_coord": True}],
+    ["SphereCrop", {"point_max": FT_ROWS, "mode": "center"}],
+    ["CenterShift", {"apply_z": False}],
+    ["NormalizeColor", {}],
+    ["ToTensor", {}],
+    ["Collect", {"keys": ("coord", "grid_coord", "segment"),
+                 "feat_keys": ("color", "normal")}],
+]
+# test-time augmentation of the tester: identity, and a z rotation by a
+# quarter turn with a scale
+FT_TTA = [[], [["RandomRotate", {"angle": [0.5, 0.5], "axis": "z",
+                                 "center": [0, 0, 0], "p": 1.0}],
+               ["RandomScale", {"scale": [0.95, 0.95]}]]]
+# part segmentation: four ShapeNetPart categories and their part labels
+PART_CATEGORIES = {"Airplane": (0, 1, 2, 3), "Chair": (12, 13, 14, 15),
+                   "Lamp": (24, 25, 26, 27), "Table": (47, 48, 49)}
+PART_CLASSES, SHAPE_POINTS = 50, 1024
+# the card-vs-CPU fine-tune step: a narrow SpUNet with 5 classes
+FT_NARROW = dict(num_classes=5, channels=(16, 16, 24, 24, 24, 16, 16, 16),
+                 layers=(1, 1, 1, 1, 1, 1, 1, 1))
+
+
+def labelled_room(seed, density=None):
+    """A synthetic ScanNet-like room from ``seed``: a 5-6 x 4-5 m floor,
+    four 2.6 m walls and 10-20 boxes of furniture standing on the floor,
+    their surfaces sampled at ``density`` points per m², each box's points
+    one ScanNet20 label (2-19) and one instance id (walls 0, floor 1,
+    instance -1), 2% of the points at label -1; colours per class with
+    noise, the surfaces' normals. Numpy arrays as a reader returns them;
+    ``density`` defaults to FT_DENSITY."""
+    import numpy as np
+    density = FT_DENSITY if density is None else density
+    rng = np.random.default_rng(seed)
+    W, D, H = rng.uniform(5.0, 6.0), rng.uniform(4.0, 5.0), 2.6
+    parts = []
+
+    def rect(origin, u, v, normal, label, inst):
+        origin, u, v = (np.asarray(x, np.float64) for x in (origin, u, v))
+        n = rng.poisson(np.linalg.norm(u) * np.linalg.norm(v) * density)
+        st = rng.random((n, 2))
+        parts.append((origin + st[:, :1] * u + st[:, 1:] * v,
+                      np.broadcast_to(np.asarray(normal, np.float64), (n, 3)),
+                      np.full(n, label), np.full(n, inst)))
+
+    rect([0, 0, 0], [W, 0, 0], [0, D, 0], [0, 0, 1], 1, -1)
+    rect([0, 0, 0], [W, 0, 0], [0, 0, H], [0, 1, 0], 0, -1)
+    rect([0, D, 0], [W, 0, 0], [0, 0, H], [0, -1, 0], 0, -1)
+    rect([0, 0, 0], [0, D, 0], [0, 0, H], [1, 0, 0], 0, -1)
+    rect([W, 0, 0], [0, D, 0], [0, 0, H], [-1, 0, 0], 0, -1)
+    for k in range(int(rng.integers(10, 21))):
+        label = int(rng.integers(2, 20))
+        sx, sy, sz = rng.uniform([0.3, 0.3, 0.3], [1.6, 1.2, 1.8])
+        x, y = rng.uniform([0.1, 0.1], [W - sx - 0.1, D - sy - 0.1])
+        rect([x, y, sz], [sx, 0, 0], [0, sy, 0], [0, 0, 1], label, k)
+        rect([x, y, 0], [sx, 0, 0], [0, 0, sz], [0, -1, 0], label, k)
+        rect([x, y + sy, 0], [sx, 0, 0], [0, 0, sz], [0, 1, 0], label, k)
+        rect([x, y, 0], [0, sy, 0], [0, 0, sz], [-1, 0, 0], label, k)
+        rect([x + sx, y, 0], [0, sy, 0], [0, 0, sz], [1, 0, 0], label, k)
+    coord, normal, segment, instance = (np.concatenate(c) for c in
+                                        zip(*parts))
+    palette = np.random.default_rng(20).uniform(30, 225, (20, 3))
+    color = np.clip(palette[segment] + rng.normal(0, 8, coord.shape), 0,
+                    255)
+    segment[rng.random(len(segment)) < 0.02] = -1
+    return {"coord": coord.astype(np.float32),
+            "color": color.astype(np.float32),
+            "normal": normal.astype(np.float32),
+            "segment": segment.astype(np.int64),
+            "instance": instance.astype(np.int64)}
+
+
+def pad_rows(d, rows):
+    """A collected example padded to ``rows`` rows with a ``mask``
+    (segment -1 on the padding)."""
+    import numpy as np
+    n = len(d["coord"])
+    if n > rows:
+        raise AssertionError(f"{n} rows past the {rows} of the batch")
+    out = {}
+    for k, dtype, fill in (("coord", np.float32, 0), ("grid_coord", np.int32,
+                                                       0),
+                           ("feat", np.float32, 0), ("segment", np.int64, -1)):
+        a = np.full((rows,) + d[k].shape[1:], fill, dtype)
+        a[:n] = d[k]
+        out[k] = a
+    out["mask"] = np.arange(rows) < n
+    out["min_coord"] = np.asarray(d["min_coord"], np.float32).reshape(3)
+    return out
+
+
+class LabelledRooms:
+    """Rooms ``labelled_room(seed + i)`` through a transform pipeline
+    (config syntax), padded to ``rows``; the loader hands each read its
+    draws (``takes_draws``)."""
+    takes_draws = True
+
+    def __init__(self, n, seed, pipeline, rows=None, density=None):
+        from unipre3d_tpu_torch.data.transforms import build_pipeline
+        self.seeds = [seed + i for i in range(n)]
+        self.pipeline = build_pipeline(pipeline)
+        self.rows = FT_ROWS if rows is None else rows
+        self.density = density
+        self.valid_rows = []
+
+    def __len__(self):
+        return len(self.seeds)
+
+    def get(self, index, draws):
+        d = self.pipeline(labelled_room(self.seeds[index], self.density),
+                          draws)
+        self.valid_rows.append(len(d["coord"]))
+        return pad_rows(d, self.rows)
+
+
+def ft_sync(device):
+    import torch
+    if device.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def make_seg_step(sched):
+    """The semantic-segmentation fine-tune step (train_step(state, batch)
+    of the engine): the batch's SpUNet geometry, the forward without
+    fusion (its per-voxel outputs the logits, in the geometry's voxel
+    order ``order0``, the labels gathered alike, the padding at -1), cross
+    entropy with ignore -1, the factory optimizer. Its metrics are floats
+    (the device synchronised), with the geometry build's and the rest's ms
+    and the step's gradient norm and learning rate."""
+    import torch
+    from torch.profiler import record_function
+    from unipre3d_tpu_torch.training import optim_factory as topt
+    from unipre3d_tpu_torch.utils.losses_seg import cross_entropy
+
+    def step(state, batch):
+        model, params, dev = state.model, state.params, state.device
+        model.train()
+        with record_function("finetune/step"):
+            ft_sync(dev)
+            t0 = time.perf_counter()
+            geo = model.build_geometry(batch, None, False)
+            ft_sync(dev)
+            t1 = time.perf_counter()
+            logits, _, _ = model.forward_point_fusion(batch, geometry=geo)
+            labels = torch.gather(batch["segment"], 1, geo.order0)
+            labels = torch.where(geo.mask0, labels,
+                                 torch.full_like(labels, -1))
+            loss = cross_entropy(logits.reshape(-1, logits.shape[-1]),
+                                 labels.reshape(-1), ignore_index=-1)
+            grads = torch.autograd.grad(loss, list(params.values()))
+            gnorm = torch.sqrt(sum((g * g).sum() for g in grads))
+            lr = sched(state.step)
+            updates, state.opt_state = state.tx.update(
+                dict(zip(params, grads)), state.opt_state, params)
+            topt.apply_updates(params, updates)
+            state.step += 1
+            loss, gnorm = float(loss.detach()), float(gnorm)
+            ft_sync(dev)
+            t2 = time.perf_counter()
+        return state, {"loss": loss, "grad_norm": gnorm, "lr": lr,
+                       "geometry_ms": (t1 - t0) * 1e3,
+                       "step_ms": (t2 - t1) * 1e3}
+    return step
+
+
+def seg_predict(state, batch):
+    """Logits [B, M, K] of the batch's rows in their input order (eval
+    mode), on the model's device."""
+    import torch
+    model = state.model
+    model.eval()
+    with torch.no_grad():
+        geo = model.build_geometry(batch, None, False)
+        logits, _, _ = model.forward_point_fusion(batch, geometry=geo)
+        out = torch.zeros_like(logits)
+        out.scatter_(1, geo.order0[..., None].expand_as(logits), logits)
+    return out
+
+
+def busy_share(trace_path, span="finetune/step"):
+    """(device busy ms, wall ms, count) over the host spans named ``span``
+    of a Chrome trace (``record_function``; the trace mirrors each on the
+    device's timeline, not counted): the union of the device's kernel,
+    copy and set intervals inside each span over the spans' length."""
+    events = json.load(open(trace_path))["traceEvents"]
+    spans = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                   if e.get("name") == span and "dur" in e
+                   and e.get("cat") == "user_annotation")
+    dev = sorted((e["ts"], e["ts"] + e["dur"]) for e in events
+                 if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset")
+                 and "dur" in e)
+    busy = 0.0
+    for lo, hi in spans:
+        cur_lo = cur_hi = None
+        for a, b in dev:
+            a, b = max(a, lo), min(b, hi)
+            if b <= a:
+                continue
+            if cur_hi is None or a > cur_hi:
+                if cur_hi is not None:
+                    busy += cur_hi - cur_lo
+                cur_lo, cur_hi = a, b
+            else:
+                cur_hi = max(cur_hi, b)
+        if cur_hi is not None:
+            busy += cur_hi - cur_lo
+    wall = sum(hi - lo for lo, hi in spans)
+    return busy / 1e3, wall / 1e3, len(spans)
+
+
+def labelled_shape(seed, ci):
+    """A synthetic part-labelled shape of category ``ci`` of
+    PART_CATEGORIES: one random box per part, SHAPE_POINTS points spread
+    over them, normalized into the unit ball; (coord [N, 3], part labels
+    [N])."""
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    labels = list(PART_CATEGORIES.values())[ci]
+    counts = rng.multinomial(SHAPE_POINTS, np.ones(len(labels)) / len(labels))
+    pts, seg = [], []
+    for lab, n in zip(labels, counts):
+        c, s = rng.uniform(-0.6, 0.6, 3), rng.uniform(0.1, 0.5, 3)
+        pts.append(c + (rng.random((n, 3)) - 0.5) * s)
+        seg.append(np.full(n, lab))
+    coord = np.concatenate(pts)
+    coord -= coord.mean(0)
+    coord /= np.linalg.norm(coord, axis=1).max()
+    return coord.astype(np.float32), np.concatenate(seg).astype(np.int64)
+
+
+def shape_points(coord, device):
+    """PCM's input [1, N, 4]: xyz and the height above the lowest point."""
+    import torch
+    c = torch.as_tensor(coord, dtype=torch.float32, device=device)
+    return torch.cat([c, c[:, 2:] - c[:, 2:].min()], 1)[None]
+
+
+def object_testers(device_line, tmp, device):
+    """The object testers on a PCM part-segmentation network
+    (``PointMambaSeg``, 50 classes, the pretraining run's width, random
+    init): one fine-tune step through the engine (part cross entropy,
+    adamw) over 8 synthetic labelled shapes of 4 categories, then in eval
+    mode ``PartSegTester`` with 2 TTA copies, and ``ClsTester`` and
+    ``ClsVotingTester`` over the part logits max-pooled over the points
+    (the first four channels: a stand-in head that only drives the
+    testers). Every predict_fn returns a CUDA tensor. Returns the scan
+    pair's launches on this path."""
+    import torch
+    from unipre3d_tpu_torch.data import Loader
+    from unipre3d_tpu_torch.data.draws import Draws
+    from unipre3d_tpu_torch.models.pcm import PointMambaSeg
+    from unipre3d_tpu_torch.ops import scan as sc
+    from unipre3d_tpu_torch.training import hooks, tester
+    from unipre3d_tpu_torch.training import optim_factory as topt
+    from unipre3d_tpu_torch.utils.losses_seg import cross_entropy
+    names = list(PART_CATEGORIES)
+    shapes = []
+    for i in range(8):
+        coord, seg = labelled_shape(100 + i, i % 4)
+        shapes.append({"coord": coord, "segment": seg, "cls_token": i % 4,
+                       "category": i % 4})
+
+    class Shapes:
+        def __len__(self):
+            return len(shapes)
+
+        def __getitem__(self, i):
+            pts = shape_points(shapes[i]["coord"], "cpu")[0].numpy()
+            return {"points": pts, "segment": shapes[i]["segment"]}
+
+    torch.manual_seed(0)
+    model = PointMambaSeg(in_channels=4, num_classes=PART_CLASSES).to(device)
+    state = hooks.FinetuneState.create(
+        model, topt.build_optimizer("adamw", 1e-4,
+                                    params=hooks.trainable_params(model)),
+        torch.Generator(device).manual_seed(0))
+
+    def part_step(state, batch):
+        state.model.train()
+        logits, _ = state.model(batch["points"], generator=state.generator)
+        loss = cross_entropy(logits.reshape(-1, PART_CLASSES),
+                             batch["segment"].reshape(-1))
+        params = state.params
+        grads = torch.autograd.grad(loss, list(params.values()))
+        updates, state.opt_state = state.tx.update(
+            dict(zip(params, grads)), state.opt_state, params)
+        topt.apply_updates(params, updates)
+        state.step += 1
+        return state, {"loss": float(loss.detach())}
+
+    def part_logits(ex):
+        model.eval()
+        with torch.no_grad():
+            return model(shape_points(ex["coord"], device))[0][0]
+
+    for k in (sc.SCAN_FWD, sc.SCAN_BWD):
+        k.launches = 0
+    ft_sync(device)
+    t = time.perf_counter()
+    timer = hooks.IterationTimer(warmup_iter=0)
+    hooks.FinetuneTrainer(state, part_step, Loader(Shapes(), 8, seed=0),
+                          os.path.join(tmp, "finetune_pcm"), 1,
+                          hooks=[timer]).train()
+    ft_sync(device)
+    step_s = time.perf_counter() - t
+    t = time.perf_counter()
+    part = tester.PartSegTester(
+        PART_CLASSES, part_logits, names,
+        {n: list(p) for n, p in PART_CATEGORIES.items()},
+        aug_transforms=[[], [["RandomScale", {"scale": [0.9, 1.1]}]]]
+    ).test(shapes, lambda i: Draws.seeded(200 + i))
+    cls_logits = lambda ex: part_logits(ex).amax(0)[:len(names)]
+    cls = tester.ClsTester(len(names), cls_logits).test(shapes)
+    vote = tester.ClsVotingTester(
+        len(names), cls_logits, num_repeat=2,
+        aug_transforms=[[], [["RandomScale", {"scale": [0.9, 1.1]}]]]
+    ).test(shapes, Draws.seeded(300))
+    ft_sync(device)
+    test_s = time.perf_counter() - t
+    launches = {"scan_fwd": sc.SCAN_FWD.launches,
+                "scan_bwd": sc.SCAN_BWD.launches}
+    log(f"[finetune] PCM part segmentation (8 shapes x {SHAPE_POINTS} "
+        f"points): one engine step {step_s:.2f} s (host clock around the "
+        f"synchronised epoch; IterationTimer {timer._times}), the testers "
+        f"{test_s:.2f} s; PartSegTester ins_mIoU {part['ins_mIoU']:.4f} "
+        f"cat_mIoU {part['cat_mIoU']:.4f}; ClsTester allAcc "
+        f"{cls['allAcc']:.4f}; ClsVotingTester allAcc {vote['allAcc']:.4f} "
+        f"(best repeat {vote['best_repeat']}); scan launches {launches} on "
+        f"{device_line}")
+    if not all(math.isfinite(v) for v in (part["ins_mIoU"], cls["allAcc"],
+                                          vote["allAcc"])):
+        raise AssertionError("object testers: a record is not finite")
+    if device.type == "cuda" and min(launches.values()) <= 0:
+        raise AssertionError(f"the scan pair did not launch on the object "
+                             f"testers' path: {launches}")
+    return launches
+
+
+def ft_card_vs_cpu(device_line):
+    """One fine-tune step (cross entropy, SGD nesterov, lr 0.05) of a narrow
+    SpUNet with 5 classes on a small labelled scene (4,096 rows), on the
+    card and on the CPU from the same weights and batch: the loss to 1e-5
+    relative, the parameter update to TOL_SCENE_PARAM_L2 in relative L2
+    (phase_parity's scene step rule)."""
+    import copy
+
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.data import batch_to, collate
+    from unipre3d_tpu_torch.data.draws import Draws
+    from unipre3d_tpu_torch.data.transforms import build_pipeline
+    from unipre3d_tpu_torch.models.sparseunet import SpUNet
+    from unipre3d_tpu_torch.training import hooks
+    from unipre3d_tpu_torch.training import optim_factory as topt
+    pipe = build_pipeline([p if p[0] != "SphereCrop" else
+                           ["SphereCrop", {"point_max": 4000,
+                                           "mode": "center"}]
+                           for p in FT_VAL_PIPELINE])
+    d = pipe(labelled_room(7, density=400.0), Draws.seeded(7))
+    d["segment"] = np.where(d["segment"] >= 0, d["segment"] % 5, -1)
+    batch = collate([pad_rows(d, 4096)])
+    torch.manual_seed(0)
+    base = SpUNet(**FT_NARROW)
+    sched = topt.make_schedule("cosine", FT_LR, total_steps=6)
+    out = {}
+    for dev in ("cpu", "cuda"):
+        model = copy.deepcopy(base).to(dev)
+        tx = topt.build_optimizer("sgd", sched, momentum=0.9, nesterov=True)
+        state = hooks.FinetuneState.create(model, tx)
+        p0 = {n: p.detach().clone() for n, p in state.params.items()}
+        _, m = make_seg_step(sched)(state, batch_to(batch, dev))
+        out[dev] = (m["loss"], {n: (p.detach() - p0[n]).cpu()
+                                for n, p in state.params.items()})
+    (l_a, u_a), (l_b, u_b) = out["cpu"], out["cuda"]
+    loss_err = abs(l_a - l_b) / abs(l_a)
+    l2 = math.sqrt(sum(float(((u_b[n] - u_a[n]) ** 2).sum()) for n in u_a)
+                   / sum(float((u_a[n] ** 2).sum()) for n in u_a))
+    log(f"[parity] fine-tune step, narrow SpUNet (5 classes, "
+        f"{int(batch['mask'].sum())} valid rows): loss cpu {l_a:.7f} cuda "
+        f"{l_b:.7f} (rel {loss_err:.2e}, tol 1e-5); parameter update, "
+        f"relative L2 {l2:.2e} (tol {TOL_SCENE_PARAM_L2:g}) on {device_line}")
+    if loss_err > 1e-5 or l2 > TOL_SCENE_PARAM_L2:
+        raise AssertionError("fine-tune step: card disagrees with the CPU")
+
+
+def phase_finetune(device_line, tmp, device=None):
+    """The downstream fine-tuning engine at full width: a SparseUNet
+    semantic-segmentation fine-tune shaped as Pointcept's ScanNet
+    SpUNet recipe. The model at its published widths with 20 classes
+    (ScanNet20) takes every encoder tensor but the 64-wide final layer from
+    the checkpoint of the ``sparseunet_pretraining`` run of the train
+    phase (binned route); synthetic labelled rooms (6 train, 2 val) go
+    through the recipe's pipeline (``TRANSFORMS``), SphereCrop at 100,000
+    points and padding to 100,000 rows; batch 2, the loader's Mix3d hook at
+    0.8; ``FinetuneTrainer`` for 2 epochs of 3 steps (cross entropy with
+    ignore -1, SGD nesterov, cosine from 0.05 with a 2-step warm-up) with
+    CheckpointLoader, IterationTimer, InformationWriter, SemSegEvaluator,
+    CheckpointSaver on val_miou and RuntimeProfiler over steps 2-6.
+    Checks: finite losses and gradient norms, the run's files, a fresh
+    state restored bit for bit from ``model_latest``, Mix3d mixed. Then
+    ``SemSegTester`` over one val room at full size (fragment voting at
+    0.02, 2 TTA pipelines), the object testers (``object_testers``) and a
+    narrow fine-tune step card against CPU (``ft_card_vs_cpu``). Returns
+    the scan pair's launches."""
+    import numpy as np
+    import torch
+    from unipre3d_tpu_torch.data import Loader
+    from unipre3d_tpu_torch.data.draws import Draws
+    from unipre3d_tpu_torch.data.transforms import (build_pipeline,
+                                                    make_mix3d_collate)
+    from unipre3d_tpu_torch.models.sparseunet import SpUNet
+    from unipre3d_tpu_torch.training import hooks, tester
+    from unipre3d_tpu_torch.training import optim_factory as topt
+    from unipre3d_tpu_torch.data import batch_to
+    device = torch.device("cuda") if device is None else device
+    t_phase = time.perf_counter()
+    out_dir = os.path.join(tmp, "finetune_scannet")
+    ckpt = os.path.join(tmp, "scene_pallas_binned", "model_latest.ckpt")
+    pre = "model/point_network.encoder."
+    with np.load(ckpt) as z:
+        enc = {k[len(pre):]: torch.from_numpy(z[k]) for k in z.files
+               if k.startswith(pre) and not k.startswith(pre + "final.")}
+
+    def new_model():
+        torch.manual_seed(0)
+        return SpUNet(in_channels=6, num_classes=len(SCANNET20),
+                      grid_size=FT_GRID).to(device)
+
+    model = new_model()
+    missing, unexpected = model.load_state_dict(enc, strict=False)
+    n_all = len(model.state_dict())
+    log(f"[finetune] SpUNet (20 classes) from {ckpt}: loaded {len(enc)} of "
+        f"its {n_all} tensors, missing {sorted(missing)}")
+    if unexpected or sorted(missing) != ["final.bias", "final.weight"] or \
+            len(enc) != n_all - 2:
+        raise AssertionError(f"encoder load: missing {missing}, unexpected "
+                             f"{unexpected}")
+    steps = FT_EPOCHS * (FT_TRAIN_SCENES // FT_BATCH)
+    sched = topt.make_schedule("cosine", FT_LR, warmup_steps=2,
+                               total_steps=steps)
+
+    def new_tx():
+        return topt.build_optimizer("sgd", sched, momentum=0.9,
+                                    nesterov=True)
+
+    state = hooks.FinetuneState.create(model, new_tx())
+    mix, mixed = make_mix3d_collate(FT_MIX_PROB), []
+
+    def mix_hook(examples, rng):
+        out = mix(examples, rng)
+        mixed.append(sum(o is not e for o, e in zip(out, examples)))
+        return out
+
+    train_ds = LabelledRooms(FT_TRAIN_SCENES, 1000, FT_TRAIN_PIPELINE)
+    val_ds = LabelledRooms(FT_VAL_SCENES, 2000, FT_VAL_PIPELINE)
+    eval_s = []
+
+    class TimedSemSeg(hooks.SemSegEvaluator):
+        def after_epoch(self):
+            ft_sync(device)
+            t = time.perf_counter()
+            super().after_epoch()
+            ft_sync(device)
+            eval_s.append(time.perf_counter() - t)
+
+    class Record(hooks.HookBase):
+        """Each step's metrics, and the host time between two steps (the
+        batch's read and Mix3d; across the epoch boundary also the
+        evaluator and the checkpoints)."""
+
+        def __init__(self):
+            self.rows, self.gaps_ms, self._end = [], [], None
+
+        def before_step(self):
+            if self._end is not None:
+                self.gaps_ms.append((time.perf_counter() - self._end) * 1e3)
+
+        def after_step(self, metrics):
+            self.rows.append(metrics)
+            self._end = time.perf_counter()
+
+    prof = hooks.RuntimeProfiler(start_step=1, num_steps=steps)
+    record = Record()
+    trainer = hooks.FinetuneTrainer(
+        state, make_seg_step(sched),
+        Loader(train_ds, FT_BATCH, seed=0, num_workers=2,
+               collate_hook=mix_hook),
+        out_dir, FT_EPOCHS, predict_fn=seg_predict,
+        val_loader=Loader(val_ds, FT_BATCH, shuffle=False, num_workers=2),
+        hooks=[hooks.CheckpointLoader(), hooks.IterationTimer(),
+               hooks.InformationWriter(log_every=1),
+               TimedSemSeg(len(SCANNET20), ignore_index=-1),
+               hooks.CheckpointSaver(metric="val_miou"), prof, record])
+    if device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    t = time.perf_counter()
+    trainer.train()
+    loop_s = time.perf_counter() - t
+    peak = torch.cuda.max_memory_allocated() / 2**30 \
+        if device.type == "cuda" else float("nan")
+    rows = record.rows
+    busy, wall, n_spans = busy_share(prof.trace_path)
+    log(f"[finetune] {len(rows)} steps at {FT_BATCH} x {FT_ROWS} rows "
+        f"(valid rows per read {train_ds.valid_rows}); geometry ms "
+        f"{[round(r['geometry_ms'], 3) for r in rows]}; step ms "
+        f"{[round(r['step_ms'], 3) for r in rows]}; losses "
+        f"{[round(r['loss'], 5) for r in rows]}; grad norms "
+        f"{[round(r['grad_norm'], 4) for r in rows]}; lr "
+        f"{[round(r['lr'], 5) for r in rows]}; host ms between steps "
+        f"{[round(g, 1) for g in record.gaps_ms]}; loop {loop_s:.2f} s "
+        f"(engine, reads, evaluator, checkpoints); Mix3d mixed {mixed} of "
+        f"{FT_BATCH} a batch; evaluator s {[round(s, 2) for s in eval_s]} "
+        f"({FT_VAL_SCENES} rooms each); {trainer.eval_metrics}; peak device "
+        f"memory {peak:.2f} GiB; device busy {busy:.1f} of {wall:.1f} ms "
+        f"over steps 2-{steps} ({n_spans} steps traced, share "
+        f"{busy / max(wall, 1e-9):.3f}) on {device_line}")
+    if len(rows) != steps or not all(
+            math.isfinite(r["loss"]) and math.isfinite(r["grad_norm"])
+            for r in rows):
+        raise AssertionError(f"fine-tune: {len(rows)} steps, not all finite")
+    for name in ("train.jsonl", "model_latest.ckpt", "model_best.ckpt",
+                 os.path.join("profile", "trace.json")):
+        if not os.path.exists(os.path.join(out_dir, name)):
+            raise AssertionError(f"fine-tune run wrote no {name}")
+    if sum(mixed) < 1 or n_spans != steps - 1:
+        raise AssertionError(f"fine-tune: Mix3d mixed {mixed}, "
+                             f"{n_spans} steps traced")
+    fresh = hooks.FinetuneState.create(new_model(), new_tx())
+    hooks.FinetuneTrainer(fresh, None, None, out_dir, 0,
+                          hooks=[hooks.CheckpointLoader()]).train()
+    a, b = fresh.model.state_dict(), trainer.state.model.state_dict()
+    same = fresh.step == trainer.state.step and list(a) == list(b) and \
+        all(torch.equal(a[k], b[k]) for k in a) and \
+        list(fresh.opt_state) == list(trainer.state.opt_state) and all(
+            torch.equal(v, trainer.state.opt_state[k]) if torch.is_tensor(v)
+            else v == trainer.state.opt_state[k]
+            for k, v in fresh.opt_state.items())
+    log(f"[finetune] restored from model_latest: step {fresh.step}, "
+        f"{len(a)} tensors, {len(fresh.opt_state)} optimizer entries, bit "
+        f"for bit: {same}")
+    if not same:
+        raise AssertionError("fine-tune: the restored state differs")
+
+    room = build_pipeline([["CenterShift", {"apply_z": True}],
+                           ["NormalizeColor", {}]])(
+        labelled_room(val_ds.seeds[0], val_ds.density), Draws.seeded(0))
+    fwd_ms, frag_rows = [], []
+
+    def frag_predict(frag):
+        n = len(frag["coord"])
+        batch = {"coord": frag["coord"][None],
+                 "grid_coord": frag["grid_coord"][None],
+                 "feat": np.concatenate([frag["color"], frag["normal"]],
+                                        1)[None],
+                 "mask": np.ones((1, n), bool),
+                 "min_coord": frag["min_coord"][None]}
+        b = batch_to(batch, device)
+        ft_sync(device)
+        t = time.perf_counter()
+        logits = seg_predict(trainer.state, b)[0]
+        ft_sync(device)
+        fwd_ms.append((time.perf_counter() - t) * 1e3)
+        frag_rows.append(n)
+        return logits
+
+    t = time.perf_counter()
+    rec = tester.SemSegTester(len(SCANNET20), frag_predict, FT_GRID,
+                              FT_TTA).test([room], Draws.seeded(1))
+    test_s = time.perf_counter() - t
+    log(f"[finetune] SemSegTester, one room of {len(room['coord'])} points "
+        f"at full size: {len(fwd_ms)} fragments over {len(FT_TTA)} TTA "
+        f"pipelines ({frag_rows[0]} rows each), forward ms "
+        f"{[round(x, 2) for x in fwd_ms]}; {test_s:.2f} s a scene; mIoU "
+        f"{rec['mIoU']:.4f} mAcc {rec['mAcc']:.4f} allAcc "
+        f"{rec['allAcc']:.4f} on {device_line}")
+    if not all(math.isfinite(rec[k]) for k in ("mIoU", "mAcc", "allAcc")):
+        raise AssertionError(f"SemSegTester: {rec}")
+    launches = object_testers(device_line, tmp, device)
+    if device.type == "cuda":
+        ft_card_vs_cpu(device_line)
+    log(f"[finetune] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def build_kernels(names):
     """Build every kernel library at once (one nvcc each, in parallel) and
     print ptxas' report."""
@@ -2452,6 +3090,8 @@ def main():
             launches[k] = launches.get(k, 0) + v
         phase_test_renders(smi, tmp)
         for k, v in phase_warm_start_lpips_export(smi, tmp).items():
+            launches[k] += v
+        for k, v in phase_finetune(smi, tmp).items():
             launches[k] += v
     phase_parity()
     phase_parity_backbones()

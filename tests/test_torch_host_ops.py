@@ -1,6 +1,8 @@
-"""The port's host FPS (unipre3d_tpu_torch/native): the C++ version equals
-its plain numpy reference bit for bit, and it raises when it cannot be
-built (no quiet numpy fallback).
+"""The port's host ops (unipre3d_tpu_torch/native): FPS, the grid dedup and
+kNN in C++ equal their plain numpy references bit for bit, and they raise
+when the library cannot be built (no quiet numpy fallback). The grid dedup
+and kNN also equal the JAX package's (unipre3d_tpu.native) on inputs
+without exact ties: its numpy kNN fallback breaks ties arbitrarily.
 
 Both seed at index 0, sum the squared distance as (dx*dx + dy*dy) + dz*dz
 in float32 with no fused multiply-add, and take the lowest index on a
@@ -13,6 +15,7 @@ held difference, ROADMAP.md.)
 import numpy as np
 import pytest
 
+from unipre3d_tpu import native as jnative
 from unipre3d_tpu_torch import native
 from test_torch_utils import trimmed_heap  # noqa: F401
 
@@ -63,3 +66,68 @@ def test_host_fps_raises_when_it_cannot_build(monkeypatch, tmp_path):
     monkeypatch.setenv("PATH", str(tmp_path))      # no g++ on the path
     with pytest.raises(RuntimeError, match="needs g\\+\\+"):
         native.host_fps(np.zeros((10, 3), np.float32), 4)
+
+
+def grid_clouds():
+    rng = np.random.default_rng(4)
+    return {
+        "uniform": (rng.uniform(-2, 2, (6000, 3)), 0.1, None),
+        "negative_min": (rng.uniform(-5, -1, (3000, 4)), 0.05,
+                         np.array([-6.0, -6.0, -6.0])),
+        "repeated": (np.repeat(rng.uniform(0, 1, (200, 3)), 5, axis=0),
+                     0.02, None),
+        "one_voxel": (np.full((50, 3), 0.5), 0.1, None),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(grid_clouds()))
+def test_host_grid_subsample_equals_numpy_reference(name):
+    xyz, g, lo = grid_clouds()[name]
+    idx, grid = native.host_grid_subsample(xyz, g, lo)
+    ridx, rgrid = native.host_grid_subsample_ref(xyz, g, lo)
+    assert idx.dtype == np.int32 and grid.dtype == np.int32
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(grid, rgrid)
+    assert (np.diff(idx) > 0).all()          # first row per voxel, in order
+    assert len(np.unique(grid, axis=0)) == len(grid)
+
+
+@pytest.mark.parametrize("name", ["uniform", "negative_min"])
+def test_host_grid_subsample_equals_jax(name):
+    xyz, g, lo = grid_clouds()[name]
+    for a, b in zip(native.host_grid_subsample(xyz, g, lo),
+                    jnative.host_grid_subsample(xyz, g, lo)):
+        np.testing.assert_array_equal(a, b)
+
+
+def knn_clouds():
+    rng = np.random.default_rng(5)
+    return {
+        "uniform": (rng.uniform(-1, 1, (300, 3)), rng.uniform(-1, 1,
+                                                             (2000, 3)), 16),
+        "grid_ties": (rng.integers(0, 5, (200, 3)),
+                      rng.integers(0, 5, (900, 3)), 12),
+        "k_past_n": (rng.normal(size=(20, 6)), rng.normal(size=(7, 6)), 10),
+    }
+
+
+@pytest.mark.parametrize("name", sorted(knn_clouds()))
+def test_host_knn_equals_numpy_reference(name):
+    q, s, k = knn_clouds()[name]
+    idx, d2 = native.host_knn(q, s, k)
+    ridx, rd2 = native.host_knn_ref(q, s, k)
+    assert idx.shape == (len(q), min(k, len(s))) and d2.dtype == np.float32
+    np.testing.assert_array_equal(idx, ridx)
+    np.testing.assert_array_equal(d2, rd2)
+    assert (np.diff(d2, axis=1) >= 0).all()
+    if name == "grid_ties":   # equal distances: ascending indices
+        same = d2[:, 1:] == d2[:, :-1]
+        assert same.any() and (idx[:, 1:][same] > idx[:, :-1][same]).all()
+
+
+def test_host_knn_equals_jax_without_ties():
+    q, s, k = knn_clouds()["uniform"]
+    idx, d2 = native.host_knn(q, s, k)
+    jidx, jd2 = jnative.host_knn(q, s, k)
+    np.testing.assert_array_equal(idx, jidx)
+    np.testing.assert_allclose(d2, jd2, rtol=1e-5, atol=1e-6)

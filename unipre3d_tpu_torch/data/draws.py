@@ -9,7 +9,8 @@ a ``random.Random`` in place of ``random``. Seeded with the same integer
 as the globals, they give the same sequences. The loader derives each
 example's from (seed, epoch, position in the epoch), which makes the draws
 independent of scheduling and a resumed run's equal to an uninterrupted
-one's.
+one's. A batch's collate hook (Mix3d) draws from a generator derived
+alike from (seed, epoch, batch index): ``batch_rng``.
 """
 
 from __future__ import annotations
@@ -36,3 +37,9 @@ def example_draws(seed: int, epoch: int, position: int) -> Draws:
     loader seeded ``seed``."""
     key = np.random.SeedSequence([seed, epoch, position])
     return Draws.seeded(int(key.generate_state(1)[0]))
+
+
+def batch_rng(seed: int, epoch: int, batch: int) -> np.random.Generator:
+    """The generator of the collate hook of batch ``batch`` of epoch
+    ``epoch`` of a loader seeded ``seed``."""
+    return np.random.default_rng([seed, epoch, batch])

@@ -15,8 +15,14 @@ would. A reader with random draws (``takes_draws``: the ShapeNet and
 ScanNet readers) reads each example with the draws of its (seed, epoch,
 position in the epoch) (data/draws.py), so a batch does not depend on
 which thread read which example; the JAX readers' global draws do. The
-synthetic datasets seed their own draws by index. Host sharding waits for
-the distributed port (ROADMAP.md queue A, item 17).
+synthetic datasets seed their own draws by index. A ``collate_hook``
+(``hook(examples, rng) -> examples``, e.g. ``transforms.make_mix3d_collate``)
+runs on each batch's examples before they are stacked, with the batch's
+own generator (``draws.batch_rng`` of (seed, epoch, batch index)): JAX's
+hook carries one generator from batch to batch, so its draws depend on
+how many batches were read before; the port's do not, and a resumed run
+mixes as an uninterrupted one. Host sharding waits for the distributed
+port (ROADMAP.md queue A, item 17).
 """
 
 from __future__ import annotations
@@ -29,7 +35,7 @@ from typing import Dict, Iterator
 import numpy as np
 import torch
 
-from unipre3d_tpu_torch.data.draws import example_draws
+from unipre3d_tpu_torch.data.draws import batch_rng, example_draws
 
 
 def collate(examples) -> Dict[str, np.ndarray]:
@@ -57,11 +63,13 @@ def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 class Loader:
     """Batches of ``batch_size`` examples, shuffled (order seeded by
     ``seed + epoch``) or in order; a ragged last batch is dropped unless
-    ``drop_last`` is False."""
+    ``drop_last`` is False; ``collate_hook(examples, rng)`` runs on each
+    batch's examples before stacking."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = True,
-                 prefetch: int = 2, num_workers: int = 4):
+                 prefetch: int = 2, num_workers: int = 4,
+                 collate_hook=None):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -69,6 +77,7 @@ class Loader:
         self.drop_last = drop_last
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
+        self.collate_hook = collate_hook
         self._pool = None
 
     def batches_per_epoch(self) -> int:
@@ -93,6 +102,9 @@ class Loader:
             examples = list(self._pool.map(lambda a: self._example(*a), jobs))
         else:
             examples = [self._example(*a) for a in jobs]
+        if self.collate_hook is not None:
+            examples = self.collate_hook(examples,
+                                         batch_rng(self.seed, epoch, b))
         return collate(examples)
 
     def _order(self, epoch: int) -> np.ndarray:

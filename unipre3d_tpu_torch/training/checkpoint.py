@@ -15,6 +15,20 @@ reader never sees half a file. It holds the port's own state:
 With the data loader restarted at the step (``Loader.iter_from``), a
 resumed run takes the same batches, DropPath draws and updates as one that
 never stopped.
+
+The fine-tuning engine's checkpoint (``save_finetune_checkpoint``,
+``load_finetune_checkpoint``; training/hooks.py) is a second layout of the
+same ``.npz`` format. JAX's ``save_checkpoint`` flattens whatever optax
+state its ``TrainState`` holds; the port's holds:
+
+* ``model/<name>``: the model's ``state_dict``;
+* ``opt/<key>``: the factory optimizer's whole state
+  (training/optim_factory.py: SGD's momentum buffers, Adam's or lamb's
+  moments, Adafactor's factored rows and columns, every count);
+* ``step``, ``best_metric`` and, when the state has one, ``generator``.
+
+Loading restores them bit for bit, each tensor onto the device of the
+state it replaces.
 """
 
 from __future__ import annotations
@@ -74,3 +88,41 @@ def load_checkpoint(path: str, model, state: TrainState
     state.step = int(flat["step"])
     state.generator.set_state(torch.from_numpy(flat["generator"]))
     return state, float(flat["best_psnr"])
+
+
+def save_finetune_checkpoint(path: str, state, best_metric: float = 0.0
+                             ) -> None:
+    """Write a fine-tune state (training/hooks.py:FinetuneState)."""
+    flat = {f"model/{k}": v.detach().cpu().numpy()
+            for k, v in state.model.state_dict().items()}
+    flat.update({f"opt/{k}": v.detach().cpu().numpy() if torch.is_tensor(v)
+                 else np.asarray(v) for k, v in state.opt_state.items()})
+    flat.update(step=np.asarray(state.step),
+                best_metric=np.asarray(best_metric))
+    if state.generator is not None:
+        flat["generator"] = state.generator.get_state().numpy()
+    os.makedirs(os.path.dirname(path) or ".", exist_ok=True)
+    tmp = f"{path}.{os.getpid()}.tmp"
+    with open(tmp, "wb") as f:
+        np.savez(f, **flat)
+    os.replace(tmp, path)
+
+
+def load_finetune_checkpoint(path: str, state):
+    """Restore a fine-tune checkpoint onto ``state`` in place (its model,
+    optimizer state, step and generator); returns (state, best_metric)."""
+    with np.load(path, allow_pickle=False) as z:
+        flat = {k: z[k] for k in z.files}
+    state.model.load_state_dict({k[6:]: torch.from_numpy(v)
+                                 for k, v in flat.items()
+                                 if k.startswith("model/")})
+    opt = {}
+    for k, old in state.opt_state.items():
+        v = flat[f"opt/{k}"]
+        opt[k] = torch.from_numpy(v).to(old.device) if torch.is_tensor(old) \
+            else type(old)(v)
+    state.opt_state = opt
+    state.step = int(flat["step"])
+    if state.generator is not None:
+        state.generator.set_state(torch.from_numpy(flat["generator"]))
+    return state, float(flat["best_metric"])
