@@ -94,7 +94,35 @@ Phases, all of them, in order; any failure exits non-zero:
    (fragment voting, 2 TTA pipelines); the object testers on a PCM
    part-segmentation network after one engine step (the scan pair
    launches on this path); one narrow fine-tune step card against CPU.
-8. parity: one train step of a small object and a small scene configuration
+8. distributed (``phase_distributed``): two ranks on the one card, each a
+   process (gloo: NCCL refuses two ranks on one device) running
+   ``train_network.main``: the full-width default object run (bf16, the
+   cache) at a global batch of 32 (16 a rank) for 3 steps with val and
+   checkpoints, then ``eval.main`` over both ranks; the same run in
+   float32 without the cache or DropPath, and a float32 full-width
+   SparseUNet run (one scene a rank, binned route), both at lr 1e-8 (the
+   CPU test's), each held against the same command in one process: every
+   step's loss to 1e-5 and gradient norm to 1e-4 relative, the parameters
+   after the last step to a mean |difference| of 0.02 lr (the scene's
+   gradient norm to 1e-3 and parameters to 0.05 lr: ~3x the readings of
+   its float atomics and BatchNorm sums, ``TOL_DIST_SCENE_GRAD_NORM``).
+   This process's cached card memory is freed before the ranks start.
+   Rank 0 writes the checkpoints and logs, rank 1 nothing; each rank's
+   step and gradient all-reduce times; one 120 MB all-reduce, the port's
+   (gloo given the CUDA tensor) and staged through the host by hand; one
+   NCCL world of one process, a default-run step and NCCL's all-reduce and
+   broadcast on the card.
+9. block (``phase_block``): three full-width default-run
+   ``sparseunet_pretraining`` steps with val on the binned route under
+   ``tpu.sparse_conv_impl=block`` and under the gather executor, in turns
+   (the rows of dropped blocks per level); each SparseUNet level's
+   SubMConv forward and forward + backward (bf16) under both; the float32
+   block step against the gather step on one batch and weights (loss to
+   1e-5, each predicted gaussian field to 1e-4 of its largest magnitude,
+   no block dropped, the parameter gradients above the PointFusion
+   merge in relative L2 to 5e-2: below it the gather's mirror-flip
+   backward differs by design).
+10. parity: one train step of a small object and a small scene configuration
    on the card (kernels) against the same step on the CPU (plain versions),
    same weights and batch; for the scene also each SparseUNet/PointFusion
    op over the step's geometry; the streaming splat with its gradients,
@@ -3012,6 +3040,519 @@ def phase_finetune(device_line, tmp, device=None):
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 13: distribution over processes, and the block-dense executor
+
+DIST_STEPS = 3
+DIST_OBJECT_BATCH = 32        # the global batch: 16 a rank
+TOL_DIST_LOSS = 1e-5          # N ranks vs one process, relative
+TOL_DIST_GRAD_NORM = 1e-4
+# The full-width SparseUNet scene's gradient norm and parameters. Its
+# splat and scatter backwards add with float atomics, and the ranks sum its
+# BatchNorm statistics in another order than one process; near-ties
+# amplify both. Readings at lr 1e-8 on the H100 (700 W): the gradient norm
+# at step 1 up to 5.9e-5 in tools/dist_gloo_cuda_check.py (2 calls) but
+# 1.16e-4-1.21e-4 in three whole chip_smoke runs whose own process kept
+# ~46 GiB of the card cached, gloo staged through the host or given the
+# CUDA tensors alike, and 4.6e-6 in one that freed it first (PERF.md §6);
+# at steps 2-3 up to 3.06e-4; the parameters up to 1.36e-2 lr. The
+# limits are ~3x the largest readings. A missing or wrong reduction moves
+# the gradient by percents and a large share of the entries by ~lr. Its
+# loss stays held to TOL_DIST_LOSS at every step (readings up to 6.3e-7).
+TOL_DIST_SCENE_GRAD_NORM = 1e-3
+TOL_DIST_SCENE_PARAM = 0.05
+# parameters after the steps: mean |difference| over lr (Adam's sign
+# flips on gradient entries at rounding noise; tests/test_parallel.py)
+TOL_DIST_PARAM = 0.02
+# The float32 holds' learning rate, the CPU test's (test_torch_distributed
+# .py, the CLI case). Adam's first steps move every entry by lr x sign(g),
+# so at the default 1e-4 the entries whose gradient is at rounding noise
+# flip and two identical one-process runs of the full-width SpUNet part by
+# up to 1.3e-3 in loss at step 2 and 4.0e-2 at step 3 (H100, 700 W), too
+# far for any fixed tolerance; at 1e-8 they part by under 2e-7 in loss at
+# every step, and every step is held (tools/dist_gloo_cuda_check.py
+# measures both rates).
+DIST_HOLD_LR = "opt.base_lr=1e-8"
+DIST_COUNTERS = ("dense_fwd", "dense_bwd", "binned_fwd", "binned_bwd")
+# the two-rank runs: (label, arguments); {dir} is the rank's directory
+DIST_OBJECT_HOLD = FLOAT32_PINS + [
+    f"opt.batch_size={DIST_OBJECT_BATCH}",
+    # DropPath off: one process assigns the global mask's rows to the
+    # batch in the loader's order, the ranks in rank order (as JAX)
+    "model.backbone_overrides={drop_path_rate: 0.0}", DIST_HOLD_LR]
+DIST_SCENE_HOLD = FLOAT32_PINS + ["opt.batch_size=2",
+                                  "tpu.raster_impl_train=pallas_binned",
+                                  DIST_HOLD_LR]
+DIST_RUNS = (
+    ("object", OBJECT_ARGV + [f"opt.batch_size={DIST_OBJECT_BATCH}"]),
+    ("object_f32", OBJECT_ARGV + DIST_OBJECT_HOLD),
+    ("scene_f32", SCENE_ARGV + DIST_SCENE_HOLD))
+
+# The program of each rank: one process per rank on the one card, the
+# port's own entry points (train_network.main, eval.main); it writes its
+# results to <base>/rank<i>.json.
+DIST_WORKER = r"""
+import json, os, sys, time
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+a = json.loads(sys.argv[1])
+from unipre3d_tpu_torch import eval as eval_cli, parallel, train_network
+from unipre3d_tpu_torch.parallel import distributed as tdist
+from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+COUNTERS = {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
+            "binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD}
+parallel.maybe_initialize()
+r, w = parallel.process_index(), parallel.process_count()
+out = {"rank": r, "world": w, "backend": torch.distributed.get_backend(),
+       "runs": {}}
+
+
+def counted(fn):
+    for k in COUNTERS.values():
+        k.launches = 0
+    res = fn()
+    torch.cuda.synchronize()
+    return res, {n: k.launches for n, k in COUNTERS.items()}
+
+
+for label, argv in a["runs"]:
+    run_dir = os.path.join(a["base"], f"{label}_r{r}")
+    res, launches = counted(lambda: train_network.main(
+        argv + ["--output-dir", run_dir, f"opt.iterations={a['steps']}",
+                "logging.loss_log=1", "logging.loop_log=100000"]))
+    out["runs"][label] = {k: res[k] for k in (
+        "losses", "grad_norms", "psnrs", "nan_skipped", "step_ms",
+        "reduce_ms", "val", "hit_rate", "valid_rows", "setup_s")
+        if k in res}
+    out["runs"][label]["launches"] = launches
+    out["runs"][label]["dir"] = run_dir
+    torch.distributed.barrier()        # rank 0 has written its run
+    if label == "object" and w > 1:
+        t = time.perf_counter()
+        scores, launches = counted(lambda: eval_cli.main(
+            [os.path.join(a["base"], "object_r0")]))
+        out["eval"] = {"scores": scores, "launches": launches,
+                       "s": time.perf_counter() - t}
+        torch.distributed.barrier()
+if w == 1:                             # NCCL: its collectives on the card
+    t = torch.ones(3, device="cuda")
+    tdist.all_reduce_sum_(t)
+    tdist.broadcast_(t)
+    out["nccl"] = t.tolist()
+else:
+    def host_ms(fn):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        return (time.perf_counter() - t0) * 1e3
+
+    def staged(t):                     # through the host by hand
+        h = t.cpu()
+        torch.distributed.all_reduce(h)
+        t.copy_(h)
+
+    # one all-reduce of 30M float32 (120 MB, ~the trainable gradients):
+    # the port's (gloo given the CUDA tensor), and staged by hand
+    big = torch.randn(30_000_000, device="cuda")
+    out["allreduce_120MB_ms"] = {
+        "port": [host_ms(lambda: tdist.all_reduce_sum_(big))
+                 for _ in range(3)],
+        "staged": [host_ms(lambda: staged(big)) for _ in range(3)]}
+with open(os.path.join(a["base"], f"rank{r}.json"), "w") as f:
+    json.dump(out, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def spawn_ranks(world, args, timeout):
+    """DIST_WORKER in ``world`` processes of one process group (the
+    ``UNIPRE3D_*`` launch, a free local port) on this card; each must exit
+    0 within ``timeout`` seconds. Returns each rank's results."""
+    import socket
+    s = socket.socket()
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+    s.close()
+    repo = os.path.dirname(os.path.abspath(__file__))
+    os.makedirs(args["base"], exist_ok=True)
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ)
+        env.update({"UNIPRE3D_COORDINATOR": f"127.0.0.1:{port}",
+                    "UNIPRE3D_NUM_PROCESSES": str(world),
+                    "UNIPRE3D_PROCESS_ID": str(rank),
+                    "PYTHONPATH": repo + os.pathsep
+                    + env.get("PYTHONPATH", "")})
+        procs.append(subprocess.Popen(
+            [sys.executable, "-c", DIST_WORKER, json.dumps(args)], env=env,
+            cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+            text=True))
+    outs = []
+    try:
+        for p in procs:
+            outs.append(p.communicate(timeout=timeout)[0])
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    for rank, (p, out) in enumerate(zip(procs, outs)):
+        if p.returncode != 0:
+            raise AssertionError(f"rank {rank} of {world} exited "
+                                 f"{p.returncode}:\n{out[-6000:]}")
+    return [json.load(open(os.path.join(args["base"], f"rank{r}.json")))
+            for r in range(world)]
+
+
+def trainable_params(ckpt):
+    """A run checkpoint's trainable parameters (those AdamW moves)."""
+    import numpy as np
+    with np.load(ckpt) as z:
+        names = [k[len("adam_mu/"):] for k in z.files
+                 if k.startswith("adam_mu/")]
+        return {n: z[f"model/{n}"] for n in names}
+
+
+def run_gaps(a, b, dir_a, dir_b, lr):
+    """Per-step relative gaps of two runs' losses and gradient norms, and
+    the mean |difference| of their final trainable parameters over lr."""
+    import numpy as np
+    loss = [abs(x - y) / abs(y) for x, y in zip(a["losses"], b["losses"])]
+    gn = [abs(x - y) / abs(y) for x, y in zip(a["grad_norms"],
+                                              b["grad_norms"])]
+    pa = trainable_params(os.path.join(dir_a, "model_latest.ckpt"))
+    pb = trainable_params(os.path.join(dir_b, "model_latest.ckpt"))
+    div = sum(float(np.abs(pa[n] - pb[n]).sum()) for n in pb) / sum(
+        pb[n].size for n in pb) / lr
+    return loss, gn, div
+
+
+def hold_ranks_vs_one(label, ranks, one, one_dir, lr, tol_gn, tol_div,
+                      device_line):
+    """The two-rank run against the one-process run on the same global
+    batches, at DIST_HOLD_LR: every rank's metrics equal each other's;
+    each step's loss within TOL_DIST_LOSS and gradient norm within
+    ``tol_gn``, relative; the trainable parameters after the last step by
+    the mean-divergence rule, within ``tol_div`` lr."""
+    for r in ranks[1:]:
+        if r["losses"] != ranks[0]["losses"] or \
+                r["grad_norms"] != ranks[0]["grad_norms"]:
+            raise AssertionError(f"{label}: the ranks' metrics differ")
+    loss, gn, div = run_gaps(ranks[0], one, ranks[0]["dir"], one_dir, lr)
+    log(f"[distributed] {label}: 2 ranks vs 1 process, {DIST_STEPS} steps "
+        f"at {DIST_HOLD_LR}: losses {ranks[0]['losses']} vs "
+        f"{one['losses']}; per step rel gap {[f'{g:.2e}' for g in loss]} "
+        f"(tol {TOL_DIST_LOSS:g}); grad norms {[f'{g:.2e}' for g in gn]} "
+        f"(tol {tol_gn:g}); parameters mean |diff| {div:.2e} "
+        f"lr (tol {tol_div:g}); val "
+        f"{ranks[0]['val'][-1]['psnr_novel']:.6f} vs "
+        f"{one['val'][-1]['psnr_novel']:.6f} on {device_line}")
+    if len(loss) != DIST_STEPS or div > tol_div or \
+            any(g > TOL_DIST_LOSS for g in loss) or \
+            any(g > tol_gn for g in gn):
+        raise AssertionError(f"{label}: the two-rank run disagrees with the "
+                             f"one-process run")
+
+
+def phase_distributed(device_line, tmp):
+    """Two ranks on the one card (gloo: NCCL refuses two ranks on one
+    device), each a process running ``train_network.main``: the full-width
+    default object run (bf16 + cache) at a global batch of 32 for 3 steps
+    with val and checkpoints, then ``eval.main`` over both ranks; the
+    float32 object run (no cache, DropPath off) and the float32 full-width
+    SpUNet scene run (batch 1 a rank, binned route), both at DIST_HOLD_LR,
+    each held against the same run in one process (this one) on the same
+    global batches (``hold_ranks_vs_one``). Rank 0
+    writes the checkpoints and logs, rank 1 nothing. Then one NCCL world of
+    one process, one default-run step and NCCL's collectives. Returns the
+    kernels' launches."""
+    import torch
+    from unipre3d_tpu_torch import train_network
+    from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+    from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+    from unipre3d_tpu_torch.training.config import load_config
+    counters = {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
+                "binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD}
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp, "dist")
+    # the ranks get the card: this process's earlier phases cache tens of
+    # GiB of it
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.empty_cache()
+    log(f"[distributed] this process's cached card memory {held:.2f} GiB, "
+        f"{torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB after freeing")
+    ranks = spawn_ranks(2, {"base": base, "runs": DIST_RUNS,
+                            "steps": DIST_STEPS}, timeout=600)
+    launches = dict.fromkeys(DIST_COUNTERS, 0)
+    for r in ranks:
+        if r["backend"] != "gloo" or r["world"] != 2:
+            raise AssertionError(f"rank {r['rank']}: {r['backend']} world "
+                                 f"{r['world']}")
+        for label, run in r["runs"].items():
+            for k, v in run["launches"].items():
+                launches[k] += v
+            if not all(math.isfinite(x) for x in run["losses"]) or \
+                    any(run["nan_skipped"]) or len(run["losses"]) != \
+                    DIST_STEPS:
+                raise AssertionError(f"rank {r['rank']} {label}: {run}")
+            log(f"[distributed] rank {r['rank']} {label}: losses "
+                f"{run['losses']}; step ms "
+                f"{[round(t, 2) for t in run['step_ms']]}; gradient "
+                f"all-reduce ms {[round(t, 2) for t in run['reduce_ms']]} "
+                f"(gloo, given the CUDA tensors); launches "
+                f"{run['launches']} on {device_line}")
+        for k in ("dense_fwd", "dense_bwd"):
+            if r["runs"]["object"]["launches"][k] <= 0:
+                raise AssertionError(f"rank {r['rank']}: no {k} launch")
+        for k in ("binned_fwd", "binned_bwd"):
+            if r["runs"]["scene_f32"]["launches"][k] <= 0:
+                raise AssertionError(f"rank {r['rank']}: no {k} launch")
+        log(f"[distributed] rank {r['rank']}: one all-reduce of 120 MB on "
+            f"the card, host ms {r['allreduce_120MB_ms']}")
+    obj = ranks[0]["runs"]["object"]
+    log(f"[distributed] object default run (bf16, cache), 2 ranks x 16: "
+        f"hit rate {obj['hit_rate']}, val {obj['val']}")
+    for label in ("object", "object_f32", "scene_f32"):
+        files = set(os.listdir(ranks[0]["runs"][label]["dir"]))
+        if not {"model_latest.ckpt", "model_best.ckpt", "metrics.jsonl",
+                ".hydra"} <= files:
+            raise AssertionError(f"{label}: rank 0 wrote {sorted(files)}")
+        if os.listdir(ranks[1]["runs"][label]["dir"]):
+            raise AssertionError(f"{label}: rank 1 wrote files")
+    ev = [r["eval"] for r in ranks]
+    scores = ev[0]["scores"]
+    obj_dir = ranks[0]["runs"]["object"]["dir"]
+    log(f"[distributed] eval.main over 2 ranks: {ev[0]['s']:.2f} s, dense "
+        f"launches {[e['launches']['dense_fwd'] for e in ev]}: {scores}")
+    if ev[1]["scores"] != scores or not os.path.exists(
+            os.path.join(obj_dir, "scores_rank1.txt")) or \
+            not all(math.isfinite(scores[k]) for k in (
+                "PSNR_cond", "PSNR_novel", "SSIM_cond", "SSIM_novel")):
+        raise AssertionError(f"two-rank eval: {ev}")
+    for e in ev:
+        launches["dense_fwd"] += e["launches"]["dense_fwd"]
+    # the one-process runs on the same global batches
+    for label, argv in DIST_RUNS[1:]:
+        one_dir = os.path.join(base, f"{label}_one")
+        for k in counters.values():
+            k.launches = 0
+        one = train_network.main(argv + [
+            "--output-dir", one_dir, f"opt.iterations={DIST_STEPS}",
+            "logging.loss_log=1", "logging.loop_log=100000"])
+        for k, c in counters.items():
+            launches[k] += c.launches
+        lr = float(load_config(argv[1], overrides=[
+            x for x in argv[2:] if "=" in x]).opt.base_lr)
+        scene = label.startswith("scene")
+        hold_ranks_vs_one(
+            label, [r["runs"][label] for r in ranks], one, one_dir, lr,
+            TOL_DIST_SCENE_GRAD_NORM if scene else TOL_DIST_GRAD_NORM,
+            TOL_DIST_SCENE_PARAM if scene else TOL_DIST_PARAM, device_line)
+    # NCCL, one rank on its own card
+    nccl = spawn_ranks(1, {"base": os.path.join(tmp, "nccl"),
+                           "runs": [("object", OBJECT_ARGV + [
+                               "opt.batch_size=16"])], "steps": 1},
+                       timeout=300)[0]
+    run = nccl["runs"]["object"]
+    log(f"[distributed] NCCL world of 1: backend {nccl['backend']}, "
+        f"all-reduce + broadcast {nccl['nccl']}, step ms {run['step_ms']}, "
+        f"launches {run['launches']}")
+    if nccl["backend"] != "nccl" or nccl["nccl"] != [1.0, 1.0, 1.0] or \
+            run["launches"]["dense_fwd"] <= 0:
+        raise AssertionError(f"NCCL world: {nccl}")
+    for k, v in run["launches"].items():
+        launches[k] += v
+    log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+def executor_snapshot(cfg, batch):
+    """The scene step's forward and backward on the card from seed-0
+    weights (float32): (loss, the predicted gaussians, the parameter
+    gradients, on the CPU; the geometry's ``block_dropped``)."""
+    from unipre3d_tpu_torch.data import batch_to
+    from unipre3d_tpu_torch.training import trainer
+    model, _ = trainer.create_train_state(cfg, device="cuda", seed=0)
+    n_in = int(cfg.data.input_images)
+    b = batch_to(batch, "cuda")
+    b["geometry"] = trainer.make_geometry_fn(cfg, model)(b)
+    model.train()
+    g = model(b["point_cloud"], b["gt_images"][:, :n_in],
+              unprojected_coords=b["unprojected_coords"],
+              geometry=b["geometry"])
+    bg = trainer.bg_color_of(cfg)
+    loss, _ = trainer.compute_loss(
+        trainer.render_supervision_views(g, b, cfg, bg),
+        b["gt_images"][:, n_in:], cfg, bg)
+    loss.backward()
+    dropped = b["geometry"].block_dropped
+    return (float(loss.detach()),
+            {k: g[k].detach().float().cpu() for k in GAUSSIAN_KEYS},
+            {n: p.grad.cpu() for n, p in model.named_parameters()
+             if p.grad is not None},
+            None if dropped is None else dropped.tolist())
+
+
+# parameters whose gradient passes the PointFusion merge's duplicate rows:
+# the gather's mirror-flip backward gives a duplicate its representative's
+# gradient, the block's true transpose none (ROADMAP C)
+BELOW_MERGE = ("point_network.encoder.conv_input.",
+               "point_network.encoder.bn_input.", "fusion_mlps.",
+               "image_conv.")
+TOL_BLOCK_LOSS = 1e-5
+# each predicted gaussian field, block vs gather: max |difference| over
+# the field's largest magnitude (rel_err). Readings on the H100 (700 W):
+# up to 1.3e-5 (scaling) and 1.1e-5 (rotation) in one call, 1.9e-5
+# (rotation) in another; the limit is 5x the largest
+TOL_BLOCK_FIELD = 1e-4
+
+
+def submconv_level_times(cfg, batch, device_line):
+    """Each SparseUNet level's SubMConv, forward and forward + backward
+    (bf16, the default run's dtype), on the level's structures of one
+    full-width batch, under the gather and the block executor in turns
+    (gather, block, block, gather): {level: {executor: (fwd, fwd+bwd)}}."""
+    import torch
+    from unipre3d_tpu_torch.data import batch_to
+    from unipre3d_tpu_torch.models import scene_geometry as sg
+    from unipre3d_tpu_torch.ops import sparse as sp
+    from unipre3d_tpu_torch.training import trainer
+    model, _ = trainer.create_train_state(cfg, device="cuda", seed=0)
+    enc = model.point_network.encoder
+    b = batch_to(batch, "cuda")
+    kw = dict(grid_size=enc.grid_size, pixel_capacity=enc.pixel_capacity,
+              level_divs=enc.level_capacity_div, n_stages=enc.n_stages,
+              use_fusion=True)
+    geo = {impl: sg.build_spunet_geometry(
+        b["point_cloud"], b["unprojected_coords"], conv_impl=impl,
+        block_size=enc.block_size, block_div=enc.block_div, **kw)
+        for impl in ("gather", "block")}
+    levels = [("stem k5", "nbr5", None, 6, 32),
+              ("fine k3", "nbr3_fine", None, 32, 32)] + [
+        (f"stage {s} k3", "nbrs", s, enc.channels[s], enc.channels[s])
+        for s in range(enc.n_stages)]
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    out = {}
+    for name, field, s, cin, cout in levels:
+        st = {impl: getattr(geo[impl], field) if s is None
+              else getattr(geo[impl], field)[s] for impl in geo}
+        M = st["gather"].shape[1]
+        k = 5 if field == "nbr5" else 3
+        x = torch.randn(1, M, cin, generator=gen, device="cuda",
+                        dtype=torch.bfloat16).requires_grad_(True)
+        w = (0.05 * torch.randn(k ** 3, cin, cout, generator=gen,
+                                device="cuda")).to(torch.bfloat16)
+        dy = torch.randn(1, M, cout, generator=gen, device="cuda",
+                         dtype=torch.bfloat16)
+
+        def fwd(impl):
+            if impl == "gather":
+                return sp.subm_gather_matmul(x, st[impl], w)
+            return sp.block_conv_apply(x, st[impl], w, enc.block_size)
+
+        def fwd_bwd(impl):
+            fwd(impl).backward(dy)
+            x.grad = None
+
+        times = {impl: [] for impl in geo}
+        for impl in ("gather", "block", "block", "gather"):
+            times[impl].append((cuda_ms(lambda: fwd(impl), 10),
+                                cuda_ms(lambda: fwd_bwd(impl), 10)))
+        out[name] = {impl: tuple(sum(t[i] for t in v) / len(v)
+                                 for i in range(2))
+                     for impl, v in times.items()}
+        blocks = int(st["block"].block_valid.sum())
+        log(f"[block] {name} ({M} rows, {cin}->{cout}, "
+            f"{blocks} blocks of {st['block'].block_valid.shape[1]}): "
+            f"gather fwd {out[name]['gather'][0]:.3f} ms fwd+bwd "
+            f"{out[name]['gather'][1]:.3f} ms; block fwd "
+            f"{out[name]['block'][0]:.3f} ms fwd+bwd "
+            f"{out[name]['block'][1]:.3f} ms on {device_line}")
+    return out
+
+
+def phase_block(device_line, tmp):
+    """The block-dense executor: three full-width default-run
+    ``sparseunet_pretraining`` steps with val on the binned route with
+    ``tpu.sparse_conv_impl=block`` (the rows of dropped blocks reported per
+    level), beside the same run with the gather executor; each SubMConv
+    level under both; and, float32 with TF32 off, the block step against
+    the gather step on the same batch and weights, where no block drops
+    (held: the sum is then the same): the loss to TOL_BLOCK_LOSS, each
+    predicted gaussian field to TOL_BLOCK_FIELD, the parameter gradients above the PointFusion merge in relative L2 to
+    TOL_SCENE_PARAM_L2. Returns the binned kernels' launches."""
+    import statistics
+    from unipre3d_tpu_torch.data import SyntheticSceneDataset, collate
+    from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+    from unipre3d_tpu_torch.training.config import load_config
+    t_phase = time.perf_counter()
+    counters = {"binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD}
+    route = ["tpu.raster_impl_train=pallas_binned", "opt.iterations=3",
+             "logging.loss_log=1"]
+    launches = dict.fromkeys(counters, 0)
+    steps = {}
+    for run in ("gather", "block", "block2", "gather2"):
+        impl = run.rstrip("2")
+        res, counts = run_train(
+            SCENE_ARGV + route + ["--output-dir",
+                                  os.path.join(tmp, f"scene_{run}"),
+                                  f"tpu.sparse_conv_impl={impl}"],
+            counters, device_line, f"scene {impl} executor")
+        for k, v in counts.items():
+            launches[k] += v
+        steps.setdefault(impl, []).extend(res["step_ms"][1:])
+        if run == "block":
+            log(f"[block] rows of dropped blocks per step (stem, fine, "
+                f"stages 0-3): {res['block_dropped']}; valid rows "
+                f"{res['valid_rows']}")
+    log(f"[block] default-run step ms, steps 2-3 of two runs each, in "
+        f"turns: gather {[round(t, 2) for t in steps['gather']]} (median "
+        f"{statistics.median(steps['gather']):.2f}), block "
+        f"{[round(t, 2) for t in steps['block']]} (median "
+        f"{statistics.median(steps['block']):.2f}) on {device_line}")
+    cfg = load_config("sparseunet_pretraining", overrides=SCENE_ARGV[2:])
+    batch = collate([SyntheticSceneDataset(cfg, num_scenes=1, seed=0,
+                                           device="cuda")[0]])
+    submconv_level_times(cfg, batch, device_line)
+    hold = SCENE_ARGV[2:] + FLOAT32_PINS + [
+        "tpu.raster_impl_train=pallas_binned"]
+    snaps = {}
+    for impl in ("gather", "block"):
+        snaps[impl] = executor_snapshot(
+            load_config("sparseunet_pretraining", overrides=hold + [
+                f"tpu.sparse_conv_impl={impl}"]), batch)
+    (l_g, out_g, pg_g, _), (l_b, out_b, pg_b, dropped) = (snaps["gather"],
+                                                          snaps["block"])
+    loss_err = abs(l_b - l_g) / abs(l_g)
+    out_err = {k: rel_err(out_g[k], out_b[k]) for k in out_g}
+    above = [n for n in pg_g if not n.startswith(BELOW_MERGE)]
+    below = [n for n in pg_g if n.startswith(BELOW_MERGE)]
+
+    def l2(names):
+        return math.sqrt(sum(float(((pg_b[n] - pg_g[n]) ** 2).sum())
+                             for n in names)
+                         / sum(float((pg_g[n] ** 2).sum()) for n in names))
+    log(f"[block] float32 (TF32 off) block vs gather step, same batch and "
+        f"weights: loss {l_g:.7f} vs {l_b:.7f} (rel {loss_err:.2e}, tol "
+        f"{TOL_BLOCK_LOSS:g}); predicted gaussians max rel err per field "
+        f"{ {k: f'{v:.1e}' for k, v in out_err.items()} } (tol "
+        f"{TOL_BLOCK_FIELD:g}); parameter "
+        f"gradients above the PointFusion merge ({len(above)} tensors) "
+        f"relative L2 {l2(above):.2e} (tol {TOL_SCENE_PARAM_L2:g}); below "
+        f"it ({len(below)} tensors, the mirror-flip difference) "
+        f"{l2(below):.2e}; rows of dropped blocks {dropped}")
+    if loss_err > TOL_BLOCK_LOSS or l2(above) > TOL_SCENE_PARAM_L2 or \
+            any(v > TOL_BLOCK_FIELD for v in out_err.values()) or \
+            set(pg_g) != set(pg_b) or any(map(any, dropped)):
+        raise AssertionError("the block executor's step disagrees with the "
+                             "gather executor's")
+    log(f"[block] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
 def build_kernels(names):
     """Build every kernel library at once (one nvcc each, in parallel) and
     print ptxas' report."""
@@ -3092,6 +3633,10 @@ def main():
         for k, v in phase_warm_start_lpips_export(smi, tmp).items():
             launches[k] += v
         for k, v in phase_finetune(smi, tmp).items():
+            launches[k] += v
+        for k, v in phase_distributed(smi, tmp).items():
+            launches[k] += v
+        for k, v in phase_block(smi, tmp).items():
             launches[k] += v
     phase_parity()
     phase_parity_backbones()

@@ -10,7 +10,8 @@ as the globals, they give the same sequences. The loader derives each
 example's from (seed, epoch, position in the epoch), which makes the draws
 independent of scheduling and a resumed run's equal to an uninterrupted
 one's. A batch's collate hook (Mix3d) draws from a generator derived
-alike from (seed, epoch, batch index): ``batch_rng``.
+alike from (seed, epoch, batch index, and the shard of a sharded loader):
+``batch_rng``.
 """
 
 from __future__ import annotations
@@ -39,7 +40,10 @@ def example_draws(seed: int, epoch: int, position: int) -> Draws:
     return Draws.seeded(int(key.generate_state(1)[0]))
 
 
-def batch_rng(seed: int, epoch: int, batch: int) -> np.random.Generator:
+def batch_rng(seed: int, epoch: int, batch: int,
+              shard: int = 0) -> np.random.Generator:
     """The generator of the collate hook of batch ``batch`` of epoch
-    ``epoch`` of a loader seeded ``seed``."""
-    return np.random.default_rng([seed, epoch, batch])
+    ``epoch`` of a loader seeded ``seed``; shard ``shard`` > 0 of a sharded
+    loader draws from its own."""
+    return np.random.default_rng([seed, epoch, batch] + ([shard] if shard
+                                                         else []))

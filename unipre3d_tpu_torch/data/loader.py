@@ -21,8 +21,18 @@ runs on each batch's examples before they are stacked, with the batch's
 own generator (``draws.batch_rng`` of (seed, epoch, batch index)): JAX's
 hook carries one generator from batch to batch, so its draws depend on
 how many batches were read before; the port's do not, and a resumed run
-mixes as an uninterrupted one. Host sharding waits for the distributed
-port (ROADMAP.md queue A, item 17).
+mixes as an uninterrupted one.
+
+Under several processes each rank reads its shard (``shard_id``,
+``num_shards``), with JAX's index rule: the epoch's order, resized
+(``np.resize``, repeating its head) to a multiple of ``num_shards`` with
+``pad_shards`` (training and the CLI's validation: every rank takes as many
+batches), or as it is without (standalone eval: no example scored twice),
+then every ``num_shards``-th entry from ``shard_id``. An example's draws are
+keyed by its position in the unsharded (padded) order, so the ranks' batch
+``b`` together hold exactly the one-process loader's batch ``b`` of the
+global batch size, draws included; the collate hook's generator differs by
+shard.
 """
 
 from __future__ import annotations
@@ -61,15 +71,17 @@ def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
 
 
 class Loader:
-    """Batches of ``batch_size`` examples, shuffled (order seeded by
-    ``seed + epoch``) or in order; a ragged last batch is dropped unless
+    """Batches of ``batch_size`` examples of shard ``shard_id`` of
+    ``num_shards`` (the whole dataset by default), shuffled (order seeded
+    by ``seed + epoch``) or in order; a ragged last batch is dropped unless
     ``drop_last`` is False; ``collate_hook(examples, rng)`` runs on each
     batch's examples before stacking."""
 
     def __init__(self, dataset, batch_size: int, seed: int = 0,
                  shuffle: bool = True, drop_last: bool = True,
                  prefetch: int = 2, num_workers: int = 4,
-                 collate_hook=None):
+                 collate_hook=None, shard_id: int = 0, num_shards: int = 1,
+                 pad_shards: bool = True):
         self.dataset = dataset
         self.batch_size = batch_size
         self.seed = seed
@@ -78,10 +90,18 @@ class Loader:
         self.prefetch = max(1, prefetch)
         self.num_workers = max(1, num_workers)
         self.collate_hook = collate_hook
+        self.shard_id, self.num_shards = shard_id, num_shards
+        self.pad_shards = pad_shards
         self._pool = None
 
+    def _shard_len(self) -> int:
+        n, s = len(self.dataset), self.num_shards
+        return -(-n // s) if self.pad_shards else len(
+            range(self.shard_id, n, s))
+
     def batches_per_epoch(self) -> int:
-        n, b = len(self.dataset), self.batch_size
+        """Batches of this shard in an epoch."""
+        n, b = self._shard_len(), self.batch_size
         return n // b if self.drop_last else -(-n // b)
 
     def _example(self, index: int, epoch: int, position: int):
@@ -94,8 +114,9 @@ class Loader:
                ) -> Dict[str, np.ndarray]:
         """Batch ``b`` of the epoch whose example order is ``idx``."""
         first = b * self.batch_size
-        jobs = [(int(i), epoch, first + j) for j, i in
-                enumerate(idx[first:first + self.batch_size])]
+        # draws keyed by the position in the unsharded order
+        jobs = [(int(i), epoch, self.shard_id + self.num_shards * (first + j))
+                for j, i in enumerate(idx[first:first + self.batch_size])]
         if self.num_workers > 1 and len(jobs) > 1:
             if self._pool is None:
                 self._pool = ThreadPoolExecutor(self.num_workers)
@@ -103,14 +124,19 @@ class Loader:
         else:
             examples = [self._example(*a) for a in jobs]
         if self.collate_hook is not None:
-            examples = self.collate_hook(examples,
-                                         batch_rng(self.seed, epoch, b))
+            examples = self.collate_hook(
+                examples, batch_rng(self.seed, epoch, b, self.shard_id))
         return collate(examples)
 
     def _order(self, epoch: int) -> np.ndarray:
+        """This shard's example indices in epoch ``epoch`` (JAX's
+        ``Loader._epoch_indices``)."""
         n = len(self.dataset)
-        return np.random.default_rng(self.seed + epoch).permutation(n) \
+        idx = np.random.default_rng(self.seed + epoch).permutation(n) \
             if self.shuffle else np.arange(n)
+        if self.pad_shards:
+            idx = np.resize(idx, -(-n // self.num_shards) * self.num_shards)
+        return idx[self.shard_id::self.num_shards]
 
     def epoch(self, epoch: int = 0, start: int = 0
               ) -> Iterator[Dict[str, np.ndarray]]:

@@ -14,8 +14,14 @@ Writes one line per example to ``scores.txt`` and the means to
 N examples (PIL, imported there). With ``opt.lpips_weights`` set (converted
 VGG weights; utils/lpips.py) it also scores LPIPS of both view sets,
 in float32; without it the LPIPS keys stay ``None``, as the JAX eval gives
-them. A set path that does not exist raises (the JAX eval skips it). One
-process on one device (the CUDA card unless ``--device`` names another).
+them. A set path that does not exist raises (the JAX eval skips it). It
+runs on the CUDA card unless ``--device`` names another device.
+
+Under several processes (the training CLI's launch contract,
+parallel/distributed.py) each rank scores its unpadded shard of the split
+(no example scored twice) and writes its lines to ``scores.txt`` (rank 0)
+or ``scores_rank{i}.txt``; the means are combined over the ranks weighted
+by their counts (``_global_mean``), and rank 0 writes ``test_scores.json``.
 """
 
 from __future__ import annotations
@@ -28,8 +34,10 @@ import numpy as np
 import torch
 import yaml
 
-from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
+from unipre3d_tpu_torch.parallel import (all_reduce_mean, make_mesh,
+                                         maybe_initialize, process_count,
+                                         process_index)
 from unipre3d_tpu_torch.train_network import existing_path
 from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
 from unipre3d_tpu_torch.training.config import ConfigNode
@@ -79,18 +87,32 @@ def _mean(values):
     return float(np.mean(values)) if values else None
 
 
+def _global_mean(values):
+    """Mean of per-example values over every process's shard: the ranks'
+    means weighted by their counts (exact for uneven shards); None when no
+    process has a value (JAX eval's ``_global_mean``)."""
+    m = float(np.mean(values)) if values else 0.0
+    if process_count() == 1:
+        return m if values else None
+    gm = all_reduce_mean(m, weight=float(len(values)))
+    return gm if all_reduce_mean(1.0 if values else 0.0) > 0 else None
+
+
 def evaluate_dataset(model, eval_step, state, loader, cfg, out_folder: str,
                      save_vis: int = 0, lpips=None):
     """Score every example of ``loader.epoch(0)`` (numpy batches of one
-    example) -> the means over examples under SCORE_KEYS (None where no
-    view counted, and LPIPS without an ``lpips`` module); writes
-    ``scores.txt`` (example, its novel PSNR, SSIM, LPIPS) and with
-    ``save_vis`` the PNGs of the first examples."""
+    example) -> the means over examples, of every process's shard, under
+    SCORE_KEYS (None where no view counted, and LPIPS without an ``lpips``
+    module); writes ``scores.txt`` (``scores_rank{i}.txt`` on rank i > 0:
+    example, its novel PSNR, SSIM, LPIPS) and with ``save_vis`` the PNGs
+    of the first examples."""
     n_in = int(cfg.data.input_images)
     dev = next(model.parameters()).device
     metricator = Metricator(lpips)
     agg = {k: [] for k in SCORE_KEYS}
-    scores_path = os.path.join(out_folder, "scores.txt")
+    pid = process_index()
+    scores_path = os.path.join(
+        out_folder, "scores.txt" if pid == 0 else f"scores_rank{pid}.txt")
     open(scores_path, "w").close()
     for d_idx, batch in enumerate(loader.epoch(0)):
         tb = batch_to(batch, dev)
@@ -123,7 +145,7 @@ def evaluate_dataset(model, eval_step, state, loader, cfg, out_folder: str,
             f.write(f"{d_idx}_example {_mean(per['PSNR_novel'])} "
                     f"{_mean(per['SSIM_novel'])} "
                     f"{_mean(per['LPIPS_novel'])}\n")
-    return {k: _mean(v) for k, v in agg.items()}
+    return {k: _global_mean(v) for k, v in agg.items()}
 
 
 def parse_args(argv=None):
@@ -142,13 +164,16 @@ def main(argv=None) -> dict:
     """Evaluate a run's checkpoint; returns the scores (also written to
     ``<experiment_path>/test_scores.json``)."""
     args = parse_args(argv)
-    device = resolve_device(args.device)
+    # form the process group before anything touches the device
+    maybe_initialize(device=args.device)
+    device = make_mesh(args.device)
     with open(os.path.join(args.experiment_path, ".hydra",
                            "config.yaml")) as f:
         cfg = ConfigNode.from_obj(yaml.safe_load(f))
     lpips_path = existing_path(cfg, "lpips_weights")
     loader = Loader(get_dataset(cfg, args.split, device), 1, shuffle=False,
-                    drop_last=False)
+                    drop_last=False, shard_id=process_index(),
+                    num_shards=process_count(), pad_shards=False)
     model, state = create_train_state(cfg, device=device,
                                       seed=int(cfg.general.random_seed))
     ckpt = os.path.join(args.experiment_path, args.ckpt)
@@ -162,12 +187,17 @@ def main(argv=None) -> dict:
                               loader, cfg, args.experiment_path,
                               args.save_vis, lpips)
     print(json.dumps(scores, indent=2))
-    out = os.path.join(args.experiment_path, "test_scores.json")
-    with open(out, "w") as f:
-        json.dump(scores, f, indent=2)
-    print(f"[eval] wrote {out}", flush=True)
+    if process_index() == 0:
+        out = os.path.join(args.experiment_path, "test_scores.json")
+        with open(out, "w") as f:
+            json.dump(scores, f, indent=2)
+        print(f"[eval] wrote {out}", flush=True)
     return scores
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

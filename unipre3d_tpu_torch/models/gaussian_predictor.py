@@ -53,6 +53,7 @@ from unipre3d_tpu_torch.models.mamba3d import Mamba3DEncoder
 from unipre3d_tpu_torch.models.pcm import PointMambaSeg
 from unipre3d_tpu_torch.models.pointmlp import PointMLPEncoder
 from unipre3d_tpu_torch.models.ptv3 import PointTransformerV3
+from unipre3d_tpu_torch.models.scene_geometry import CONV_IMPLS
 from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
@@ -252,8 +253,12 @@ class GaussianSplatPredictor(nn.Module):
             else:
                 self.image_conv = ImageConv(mc["fusion_dim"], feat_ch=feat_ch,
                                             dtype=dtype)
-                self.fusion_mlps = SubMConvBlock(mc["fusion_dim"],
-                                                 mc["fusion_dim"], dtype)
+                # the backbone's block size, which JAX's omits (its
+                # default, 4, is every config's)
+                self.fusion_mlps = SubMConvBlock(
+                    mc["fusion_dim"], mc["fusion_dim"], dtype,
+                    block_size=getattr(self.point_network.encoder,
+                                       "block_size", 4))
         self.register_buffer("intrinsic", torch.from_numpy(np.asarray(
             intrinsics_from_fov(fov, training_resolution))), persistent=False)
 
@@ -360,10 +365,21 @@ class GaussianSplatPredictor(nn.Module):
 
 
 def build_predictor(cfg, dtype: torch.dtype = F32) -> GaussianSplatPredictor:
-    """Construct from a composed config, computing in ``dtype``."""
+    """Construct from a composed config, computing in ``dtype``.
+    ``tpu.sparse_conv_impl`` (``gather``, the default, or ``block``) is
+    SparseUNet's ``conv_impl`` unless ``model.backbone_overrides`` sets
+    one, as in JAX; another value raises (JAX would fail later, in the
+    geometry)."""
     res = (int(cfg.data.training_resolution)
            if "training_resolution" in cfg.data else
            int(cfg.data.training_height))
+    bo = dict(cfg.model.get("backbone_overrides") or {})
+    impl = (cfg.get("tpu") or {}).get("sparse_conv_impl")
+    if impl is not None and str(impl) not in CONV_IMPLS:
+        raise ValueError(f"tpu.sparse_conv_impl {impl!r}: one of "
+                         f"{CONV_IMPLS}")
+    if impl and cfg.model.backbone_type == "sparseunet":
+        bo.setdefault("conv_impl", str(impl))
     return GaussianSplatPredictor(
         backbone_type=cfg.model.backbone_type,
         in_channels=int(cfg.model.in_channels),
@@ -374,7 +390,7 @@ def build_predictor(cfg, dtype: torch.dtype = F32) -> GaussianSplatPredictor:
         level=cfg.opt.level,
         fov=float(cfg.data.fov),
         training_resolution=res,
-        backbone_overrides=dict(cfg.model.get("backbone_overrides") or {}),
+        backbone_overrides=bo,
         vae_overrides=dict(cfg.model.get("vae_overrides") or {}),
         dtype=dtype,
     )

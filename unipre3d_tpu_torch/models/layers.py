@@ -21,6 +21,11 @@ parameter paths so that weights convert by rule
   returns float32 from ``layer_norm`` and ``softmax``. At float32 every
   cast is the identity and the modules compute what ``nn.Linear`` and
   ``nn.LayerNorm`` do.
+
+Under several processes (parallel/distributed.py), inside ``synced()``
+BatchNorm takes its statistics over the global batch (its sums all-reduced,
+with their gradient) and DropPath draws the global batch's per-sample mask
+and keeps this rank's rows, as the JAX step over a data-sharded batch does.
 """
 
 from __future__ import annotations
@@ -28,6 +33,10 @@ from __future__ import annotations
 import torch
 from torch import nn
 from torch.nn import functional as F
+
+from unipre3d_tpu_torch.parallel.distributed import (global_rows,
+                                                     sum_across_ranks,
+                                                     sync_world)
 
 LN_EPS = 1e-6
 F32 = torch.float32
@@ -118,12 +127,18 @@ class Attention(nn.Module):
 
 def drop_path(x, rate: float, generator, training: bool):
     """Per-sample stochastic depth; the keep mask is drawn from the explicit
-    ``generator``."""
+    ``generator``: inside ``synced()``, the global batch's mask, of which
+    this rank keeps its rows (``global_rows``). Every caller (Transformer,
+    Mamba3D, PCM, PTv3) passes ``[B, ...]`` with one scene or object a
+    row, so this mask is per sample everywhere. The one elementwise mask,
+    PCM's SegHead dropout (models/pcm.py:dropout), takes the same rule
+    over its whole ``[B, N, C]`` draw."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    shape = (x.shape[0],) + (1,) * (x.ndim - 1)
-    mask = torch.rand(shape, generator=generator, device=x.device) < keep
+    tail = (1,) * (x.ndim - 1)
+    mask = global_rows(lambda n: torch.rand(
+        (n,) + tail, generator=generator, device=x.device), x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 
@@ -151,7 +166,8 @@ class FlaxBatchNorm(nn.Module):
     stats from E[x^2] - E[x]^2 (clamped at 0), eps 1e-5, and running
     stats ``ra = 0.99 ra + 0.01 batch`` with the biased variance. In eval
     mode it normalizes by the running stats. Statistics, running stats and
-    affine are float32; the output is in ``dtype``."""
+    affine are float32; the output is in ``dtype``. Inside ``synced()``
+    the sums behind E[x] and E[x^2] are the global batch's."""
 
     def __init__(self, ch: int, momentum: float = 0.99, eps: float = 1e-5,
                  dtype: torch.dtype = F32):
@@ -165,8 +181,14 @@ class FlaxBatchNorm(nn.Module):
     def forward(self, x):
         if self.training:
             flat = x.reshape(-1, x.shape[-1]).float()
-            mean = flat.mean(0)
-            var = torch.clamp_min((flat * flat).mean(0) - mean * mean, 0.0)
+            w = sync_world()
+            if w > 1:        # every rank holds as many rows
+                s = sum_across_ranks(torch.cat([flat.sum(0),
+                                                (flat * flat).sum(0)]))
+                mean, sq = (s / (w * flat.shape[0])).chunk(2)
+            else:
+                mean, sq = flat.mean(0), (flat * flat).mean(0)
+            var = torch.clamp_min(sq - mean * mean, 0.0)
             with torch.no_grad():
                 m = self.momentum
                 self.running_mean.mul_(m).add_((1.0 - m) * mean.detach())

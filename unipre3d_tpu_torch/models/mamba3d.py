@@ -12,7 +12,9 @@ the *learned CLS positional embedding* ``[B, 1, C]`` in place of centres;
 the Gaussian head takes its first 3 channels as every gaussian's centre
 (broadcast over the tokens). ``LNPBlock`` normalizes by one scalar
 standard deviation over the whole ``[B, G, K, C]`` neighbourhood tensor
-(``correction=0``, as ``jnp.std``); its float32 affine promotes the
+(``correction=0``, as ``jnp.std``; inside ``synced()`` over the global
+batch, as JAX's over its data-sharded batch, in training and in the CLI's
+validation); its float32 affine promotes the
 bfloat16 activations to float32, and the K_Pool's exp runs on them, as in
 JAX.
 """
@@ -29,6 +31,8 @@ from unipre3d_tpu_torch.models.layers import (F32, Dense, LayerNorm,
 from unipre3d_tpu_torch.models.mamba_mixer import MambaMixer
 from unipre3d_tpu_torch.ops.point_ops import (index_points, knn,
                                               subsample_group)
+from unipre3d_tpu_torch.parallel.distributed import (sum_across_ranks,
+                                                     sync_world)
 
 
 def trunc_normal_(p: torch.Tensor, std: float, generator) -> None:
@@ -36,6 +40,18 @@ def trunc_normal_(p: torch.Tensor, std: float, generator) -> None:
     truncated at +-2."""
     p.copy_(nn.init.trunc_normal_(torch.empty(p.shape), std=std,
                                   a=-2 * std, b=2 * std, generator=generator))
+
+
+def spread(x: torch.Tensor) -> torch.Tensor:
+    """The biased variance of every entry of ``x`` (JAX's ``jnp.std`` over
+    the whole batch, squared); inside ``synced()`` the global batch's,
+    from the global sum, then the global centred sum of squares."""
+    w = sync_world()
+    if w == 1:
+        return x.var(correction=0)
+    n = w * x.numel()           # every rank holds as many entries
+    mean = sum_across_ranks(x.sum().reshape(1)) / n
+    return (sum_across_ranks(((x - mean) ** 2).sum().reshape(1)) / n)[0]
 
 
 class LNPBlock(nn.Module):
@@ -58,7 +74,7 @@ class LNPBlock(nn.Module):
         knn_x = index_points(x, idx)                          # [B, G, K, C]
         mean_x = x[:, :, None, :]
         diff = knn_x - mean_x
-        std = torch.sqrt(diff.float().var(correction=0).to(diff.dtype))
+        std = torch.sqrt(spread(diff.float()).to(diff.dtype))
         knn_x = torch.cat([diff / (std + 1e-5), mean_x.expand_as(knn_x)], -1)
         knn_x = self.affine_alpha_feat * knn_x + self.affine_beta_feat
         e_x = torch.exp(knn_x)

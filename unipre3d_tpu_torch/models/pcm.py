@@ -44,6 +44,7 @@ from unipre3d_tpu_torch.models.pointmlp import (ConvBNReLU,
 from unipre3d_tpu_torch.ops.point_ops import (furthest_point_sample,
                                               index_points, knn)
 from unipre3d_tpu_torch.ops.serialization import encode
+from unipre3d_tpu_torch.parallel.distributed import global_rows
 
 PCM_ORDERS = ("xyz", "xzy", "yxz", "yzx", "zxy", "zyx",
               "hilbert", "z", "z-trans")
@@ -69,11 +70,15 @@ def serialize_reorder(p: torch.Tensor, arrays, order: str,
 
 def dropout(x, rate: float, generator, training: bool):
     """Elementwise dropout with flax's ``nn.Dropout`` semantics (x / keep
-    where kept), the mask drawn from ``generator``."""
+    where kept), the mask drawn from ``generator``: inside ``synced()``,
+    the global batch's elementwise mask, of which this rank keeps its rows
+    (``global_rows``), as JAX's draw over the data-sharded batch."""
     if rate == 0.0 or not training:
         return x
     keep = 1.0 - rate
-    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    mask = global_rows(lambda n: torch.rand(
+        (n,) + tuple(x.shape[1:]), generator=generator, device=x.device),
+        x.shape[0]) < keep
     return torch.where(mask, x / keep, torch.zeros_like(x))
 
 

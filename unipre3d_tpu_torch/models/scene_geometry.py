@@ -34,17 +34,24 @@ class SpUNetGeometry(NamedTuple):
     nbr5 [B, M, 125] stem table; pix_rep [B, P] pixel row feeding each fused
     voxel (-1) and merge_order [B, M+P] (None without fusion); world
     [B, Mf, 3] and fine_mask [B, Mf] of the final set; nbr3_fine
-    [B, Mf, 27]; downs per stage; nbrs per stage [B, Mc, 27]."""
+    [B, Mf, 27]; downs per stage; nbrs per stage [B, Mc, 27]. For the
+    block executor (``conv_impl="block"``) every table is a
+    :class:`~unipre3d_tpu_torch.ops.sparse.BlockStructure` instead, and
+    ``block_dropped`` [B, 2 + stages] counts the valid rows whose block
+    was dropped past its capacity (their outputs are 0, as in JAX, which
+    does not count them): the stem's, the fine level's, each stage's.
+    None for the gather executor."""
     order0: torch.Tensor
     mask0: torch.Tensor
-    nbr5: torch.Tensor
+    nbr5: object
     pix_rep: Optional[torch.Tensor]
     merge_order: Optional[torch.Tensor]
     world: torch.Tensor
     fine_mask: torch.Tensor
-    nbr3_fine: torch.Tensor
+    nbr3_fine: object
     downs: Tuple[sp.DownStructure, ...]
-    nbrs: Tuple[torch.Tensor, ...]
+    nbrs: Tuple[object, ...]
+    block_dropped: Optional[torch.Tensor] = None
 
 
 def _no_feats(m: int, device) -> torch.Tensor:
@@ -67,18 +74,26 @@ class FineGeometry(NamedTuple):
     coords: torch.Tensor
 
 
+def _gather_table(coords, mask, k: int) -> torch.Tensor:
+    """The gather executor's k^3 neighbour table of a canonical set."""
+    return sp.find_neighbors(
+        sp.SparseVoxels(coords, _no_feats(coords.shape[0], coords.device),
+                        mask), sp.kernel_offsets(k))
+
+
 def _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
                        grid_size: float, pixel_capacity: int,
-                       use_fusion: bool) -> FineGeometry:
-    """The shared part of ONE scene's geometry (unbatched fields)."""
+                       use_fusion: bool, table=_gather_table
+                       ) -> FineGeometry:
+    """The shared part of ONE scene's geometry (unbatched fields);
+    ``table(coords, mask, k)`` builds the stem's (k 5) and the fine
+    level's (k 3) conv structures."""
     dev = grid_coord.device
     M = grid_coord.shape[0]
 
     order0 = sp._argsort(sp.pack_code(grid_coord, mask))
     coords_c, mask0, world_c = grid_coord[order0], mask[order0], coord[order0]
-    nbr5 = sp.find_neighbors(
-        sp.SparseVoxels(coords_c, _no_feats(M, dev), mask0),
-        sp.kernel_offsets(5))
+    nbr5 = table(coords_c, mask0, 5)
 
     pix_rep = merge_order = None
     if use_fusion:
@@ -101,39 +116,56 @@ def _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
     else:
         fine_coords, fine_mask, world = coords_c, mask0, world_c
 
-    nbr3_fine = sp.find_neighbors(
-        sp.SparseVoxels(fine_coords, _no_feats(fine_coords.shape[0], dev),
-                        fine_mask), sp.kernel_offsets(3))
+    nbr3_fine = table(fine_coords, fine_mask, 3)
     return FineGeometry(order0=order0, mask0=mask0, nbr5=nbr5,
                         pix_rep=pix_rep, merge_order=merge_order, world=world,
                         fine_mask=fine_mask, nbr3_fine=nbr3_fine,
                         coords=fine_coords)
 
 
+CONV_IMPLS = ("gather", "block")
+
+
 def _geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
                   grid_size: float, pixel_capacity: int,
-                  level_caps: Sequence[int], use_fusion: bool
-                  ) -> SpUNetGeometry:
-    """SparseUNet geometry of ONE scene (unbatched fields), for the gather
-    executor (the JAX package's ``conv_impl="gather"``): the shared part,
-    then a stride-2 structure and a 3^3 table per level."""
+                  level_caps: Sequence[int], use_fusion: bool,
+                  conv_impl: str = "gather", block_size: int = 4,
+                  block_div: int = 8) -> SpUNetGeometry:
+    """SparseUNet geometry of ONE scene (unbatched fields): the shared
+    part, then a stride-2 structure and a 3^3 structure per level. The
+    structures are neighbour tables for ``conv_impl="gather"`` and, for
+    ``"block"``, block structures (JAX ``_geometry_one``): a k3 set of
+    capacity ``cap`` gets ``max(cap // block_div, 16)`` blocks of side
+    ``block_size``, the stem's k5 set ``max(M // block_div, 16)`` (halo
+    2)."""
+    if conv_impl not in CONV_IMPLS:
+        raise ValueError(f"conv_impl {conv_impl!r}: one of {CONV_IMPLS}")
+    table = _gather_table
+    if conv_impl == "block":
+        def table(coords, mask, k):
+            return sp.block_structure(
+                coords, mask, max(coords.shape[0] // block_div, 16),
+                bs=block_size, halo=k // 2)
     fine = _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj,
                               grid_size=grid_size,
                               pixel_capacity=pixel_capacity,
-                              use_fusion=use_fusion)
-    dev = grid_coord.device
-    offs3 = sp.kernel_offsets(3)
+                              use_fusion=use_fusion, table=table)
     downs, nbrs = [], []
     cur_coords, cur_mask = fine.coords, fine.fine_mask
     for cap in level_caps:
         ds = sp.downsample_structure(cur_coords, cur_mask, cap)
-        nbrs.append(sp.find_neighbors(
-            sp.SparseVoxels(ds.coords, _no_feats(cap, dev), ds.mask), offs3))
+        nbrs.append(table(ds.coords, ds.mask, 3))
         downs.append(ds)
         cur_coords, cur_mask = ds.coords, ds.mask
     shared = fine._asdict()
     del shared["coords"]
-    return SpUNetGeometry(**shared, downs=tuple(downs), nbrs=tuple(nbrs))
+    dropped = None
+    if conv_impl == "block":
+        sets = [(fine.nbr5, fine.mask0), (fine.nbr3_fine, fine.fine_mask)] \
+            + [(b, d.mask) for b, d in zip(nbrs, downs)]
+        dropped = torch.stack([(m & (b.out_idx < 0)).sum() for b, m in sets])
+    return SpUNetGeometry(**shared, downs=tuple(downs), nbrs=tuple(nbrs),
+                          block_dropped=dropped)
 
 
 def _stack(items):
@@ -149,12 +181,15 @@ def _stack(items):
 
 def build_spunet_geometry(data, unprojected, *, grid_size: float,
                           pixel_capacity: int, level_divs: Sequence[int],
-                          n_stages: int, use_fusion: bool) -> SpUNetGeometry:
+                          n_stages: int, use_fusion: bool,
+                          conv_impl: str = "gather", block_size: int = 4,
+                          block_div: int = 8) -> SpUNetGeometry:
     """Batched SpUNet geometry. data: dict with ``grid_coord`` [B, M, 3],
     ``mask`` [B, M], ``coord`` [B, M, 3], ``min_coord`` [B, 3];
     unprojected [B, V, H, W, 4] (ignored without fusion). Level capacities
     are ``max(M // level_divs[s], 64)`` of the pre-merge M, as in the JAX
-    package."""
+    package; ``conv_impl``, ``block_size`` and ``block_div`` choose the
+    conv structures (``_geometry_one``)."""
     M = data["mask"].shape[1]
     level_caps = tuple(max(M // int(level_divs[s]), 64)
                        for s in range(n_stages))
@@ -165,7 +200,8 @@ def build_spunet_geometry(data, unprojected, *, grid_size: float,
             data["min_coord"][b] if use_fusion else None,
             unprojected[b] if use_fusion else None,
             grid_size=grid_size, pixel_capacity=pixel_capacity,
-            level_caps=level_caps, use_fusion=use_fusion))
+            level_caps=level_caps, use_fusion=use_fusion,
+            conv_impl=conv_impl, block_size=block_size, block_div=block_div))
     return _stack(scenes)
 
 

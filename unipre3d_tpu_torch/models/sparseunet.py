@@ -8,7 +8,10 @@ BasicBlock x 2] with channels (256, 128, 96, 96), final linear -> 64.
 
 Voxel sets are fixed-capacity, code-sorted and masked (ops/sparse.py); all
 index structures come precomputed in a :class:`~unipre3d_tpu_torch.models.
-scene_geometry.SpUNetGeometry`. BatchNorm statistics run over the valid
+scene_geometry.SpUNetGeometry`, whose submanifold structures are neighbour
+tables (``conv_impl="gather"``, the default) or block structures
+(``"block"``, ops/sparse.py:block_conv_apply; ``block_size``, ``block_div``,
+threaded into every SubMConv, the scene ``fusion_mlps`` included). BatchNorm statistics run over the valid
 rows of the whole batch. Module and parameter names follow the flax tree
 (``conv_input``, ``enc{s}_block{i}``, ``down{s}``, ...) so that
 ``weights.jax_to_state_dict`` maps it across.
@@ -31,8 +34,10 @@ from torch import nn
 from torch.nn import functional as F
 
 from unipre3d_tpu_torch.models.layers import F32, Dense
-from unipre3d_tpu_torch.models.scene_geometry import build_spunet_geometry
+from unipre3d_tpu_torch.models.scene_geometry import (CONV_IMPLS,
+                                                      build_spunet_geometry)
 from unipre3d_tpu_torch.ops import sparse as sp
+from unipre3d_tpu_torch.parallel.distributed import sum_across_ranks
 
 
 class MaskedBatchNorm(nn.Module):
@@ -41,7 +46,8 @@ class MaskedBatchNorm(nn.Module):
     0.99 running + 0.01 batch). Batch statistics are the masked mean and
     the masked BIASED variance, and the running variance is updated with
     the biased one too; ``torch.nn.BatchNorm1d`` does neither. Float32
-    throughout; the output is in ``dtype``."""
+    throughout; the output is in ``dtype``. Inside ``synced()`` the count,
+    the sum and the centred sum of squares are the global batch's."""
 
     def __init__(self, ch: int, eps: float = 1e-3, momentum: float = 0.01,
                  dtype: torch.dtype = F32):
@@ -57,9 +63,13 @@ class MaskedBatchNorm(nn.Module):
         if self.training:
             m = mask.reshape(-1, 1).float()
             xf = x.reshape(-1, C).float()
-            n = torch.clamp_min(m.sum(), 1.0)
-            mean = (xf * m).sum(0) / n
-            var = (((xf - mean) ** 2) * m).sum(0) / n
+            # (sum, count), then the centred sum of squares: global sums
+            # across ranks inside synced(), where shards hold different
+            # numbers of valid rows
+            s = sum_across_ranks(torch.cat([(xf * m).sum(0), m.sum(0)]))
+            n = torch.clamp_min(s[C], 1.0)
+            mean = s[:C] / n
+            var = sum_across_ranks((((xf - mean) ** 2) * m).sum(0)) / n
             with torch.no_grad():
                 self.running_mean.copy_((1 - self.momentum) * self.running_mean
                                         + self.momentum * mean)
@@ -96,25 +106,36 @@ class SparseKernel(nn.Module):
 
 
 class SubMConv(SparseKernel):
-    """Submanifold conv over a neighbour table: feats [B, M, Cin], nbr
-    [B, M, K] -> [B, M, Cout] (+ bias)."""
+    """Submanifold conv over a precomputed structure: feats [B, M, Cin] and
+    a neighbour table [B, M, K] (gather executor) or a batched
+    :class:`~unipre3d_tpu_torch.ops.sparse.BlockStructure` of blocks of
+    side ``block_size`` (block executor) -> [B, M, Cout] (+ bias). The
+    structure's type chooses the executor, as in JAX."""
 
     def __init__(self, cin: int, cout: int, kernel_size: int = 3,
-                 use_bias: bool = False, dtype: torch.dtype = F32):
+                 use_bias: bool = False, block_size: int = 4,
+                 dtype: torch.dtype = F32):
         super().__init__(kernel_size ** 3, cin, cout, dtype)
+        self.block_size = block_size
         self.bias = nn.Parameter(torch.zeros(cout)) if use_bias else None
 
     def forward(self, feats, nbr):
-        y = sp.subm_gather_matmul(feats, nbr, self.kernel())
+        if isinstance(nbr, sp.BlockStructure):
+            y = sp.block_conv_apply(feats, nbr, self.kernel(),
+                                    self.block_size)
+        else:
+            y = sp.subm_gather_matmul(feats, nbr, self.kernel())
         return y if self.bias is None else y + self.bias
 
 
 class SubMConvBlock(nn.Module):
     """SubMConv(k3, bias) + BN + ReLU: the scene ``fusion_mlps``."""
 
-    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32):
+    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32,
+                 block_size: int = 4):
         super().__init__()
-        self.conv = SubMConv(cin, channels, 3, use_bias=True, dtype=dtype)
+        self.conv = SubMConv(cin, channels, 3, use_bias=True,
+                             block_size=block_size, dtype=dtype)
         self.bn = MaskedBatchNorm(channels, dtype=dtype)
 
     def forward(self, feats, nbr, mask):
@@ -125,11 +146,14 @@ class BasicBlock(nn.Module):
     """[conv3-bn-relu-conv3-bn] + x (or a bias-free projection + BN when
     the width changes), then ReLU."""
 
-    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32):
+    def __init__(self, cin: int, channels: int, dtype: torch.dtype = F32,
+                 block_size: int = 4):
         super().__init__()
-        self.conv1 = SubMConv(cin, channels, dtype=dtype)
+        self.conv1 = SubMConv(cin, channels, block_size=block_size,
+                              dtype=dtype)
         self.bn1 = MaskedBatchNorm(channels, dtype=dtype)
-        self.conv2 = SubMConv(channels, channels, dtype=dtype)
+        self.conv2 = SubMConv(channels, channels, block_size=block_size,
+                              dtype=dtype)
         self.bn2 = MaskedBatchNorm(channels, dtype=dtype)
         if cin != channels:
             self.proj = Dense(cin, channels, bias=False, dtype=dtype)
@@ -201,19 +225,21 @@ class SpUNet(nn.Module):
                  layers: Sequence[int] = (2, 3, 4, 6, 2, 2, 2, 2),
                  grid_size: float = 0.02, pixel_capacity: int = 4096,
                  level_capacity_div: Sequence[int] = (3, 9, 27, 81),
-                 conv_impl: str = "gather", dtype: torch.dtype = F32):
+                 conv_impl: str = "gather", block_size: int = 4,
+                 block_div: int = 8, dtype: torch.dtype = F32):
         super().__init__()
-        if conv_impl != "gather":
-            raise NotImplementedError(
-                f"sparse conv executor {conv_impl!r} is not ported (the block "
-                "executor is ROADMAP.md item 18)")
+        if conv_impl not in CONV_IMPLS:
+            raise ValueError(f"conv_impl {conv_impl!r}: one of {CONV_IMPLS}")
+        self.conv_impl, self.block_size = conv_impl, block_size
+        self.block_div = block_div
         self.channels, self.layers = tuple(channels), tuple(layers)
         self.grid_size, self.pixel_capacity = grid_size, pixel_capacity
         self.level_capacity_div = tuple(level_capacity_div)
         n_stages = len(self.layers) // 2
         self.n_stages, self.dtype = n_stages, dtype
 
-        self.conv_input = SubMConv(in_channels, base_channels, 5, dtype=dtype)
+        self.conv_input = SubMConv(in_channels, base_channels, 5,
+                                   block_size=block_size, dtype=dtype)
         self.bn_input = MaskedBatchNorm(base_channels, dtype=dtype)
         enc_ch = [base_channels]
         c = base_channels
@@ -221,7 +247,8 @@ class SpUNet(nn.Module):
             self.add_module(f"down{s}", DownConv(c, self.channels[s], dtype))
             c = self.channels[s]
             for i in range(self.layers[s]):
-                self.add_module(f"enc{s}_block{i}", BasicBlock(c, c, dtype))
+                self.add_module(f"enc{s}_block{i}",
+                                BasicBlock(c, c, dtype, block_size))
             enc_ch.append(c)
         # decoder widths (reference :230-276): start at channels[-1], then
         # channels[len - s - 2]
@@ -235,7 +262,8 @@ class SpUNet(nn.Module):
             c = self.ref_dec[s] + enc_ch[s]
             for i in range(self.layers[len(self.channels) - s - 1]):
                 self.add_module(f"dec{s}_block{i}",
-                                BasicBlock(c, self.ref_dec[s], dtype))
+                                BasicBlock(c, self.ref_dec[s], dtype,
+                                           block_size))
                 c = self.ref_dec[s]
         self.final = Dense(c, num_classes, dtype=dtype)
 
@@ -245,7 +273,8 @@ class SpUNet(nn.Module):
             data, unprojected, grid_size=self.grid_size,
             pixel_capacity=self.pixel_capacity,
             level_divs=self.level_capacity_div, n_stages=self.n_stages,
-            use_fusion=use_fusion)
+            use_fusion=use_fusion, conv_impl=self.conv_impl,
+            block_size=self.block_size, block_div=self.block_div)
 
     def forward_point_fusion(self, data, image_features=None,
                              unprojected=None, fusion_mlp=None,

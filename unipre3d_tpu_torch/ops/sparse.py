@@ -17,11 +17,16 @@ scene, as in the JAX package. The feature functions (``subm_gather_matmul``,
 ``downsample_apply``, ``inverse_conv``) take a leading scene axis
 ``[B, ...]``, which the JAX package ``vmap``s instead.
 
+The block-dense executor (``BlockStructure``, ``block_structure``,
+``block_conv_apply``) computes a submanifold conv the other way: each voxel
+is scattered into the halo tensors of the blocks that contain it, one dense
+``F.conv3d`` runs over all blocks, and the interior outputs are gathered
+back. Its structure takes one scene, its apply a leading scene axis.
+
 Not ported: the TPU gather-cost tricks (``_window_gather``, the hierarchical
 rank of ``_merge_lookup``, the 16-lane code window of
 ``_find_neighbors_cubic``), each replaced by one gather or one
-``searchsorted`` with the same result; the block-dense executor
-(``BlockStructure``, ROADMAP item 18).
+``searchsorted`` with the same result.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import NamedTuple, Tuple
 
 import numpy as np
 import torch
+from torch.nn import functional as F
 
 CODE_BITS = 10          # per-axis bits; grid coords must be < 1024
 INVALID_CODE = 0xFFFFFFFF
@@ -163,6 +169,124 @@ class SubMGatherMatmul(torch.autograd.Function):
 def subm_gather_matmul(feats, nbr, weight):
     """See :class:`SubMGatherMatmul`."""
     return SubMGatherMatmul.apply(feats, nbr, weight)
+
+
+class BlockStructure(NamedTuple):
+    """Block-dense layout of one voxel set (one scene, or [B, ...] once
+    stacked), JAX ``sparse.py:BlockStructure``: ``scat_idx`` [M, 8] each
+    voxel's flat targets in the [NB * hs^3] halo tensors of the <= 8 blocks
+    whose halo holds it (NB * hs^3: none); ``out_idx`` [M] its interior
+    cell in [NB * bs^3], -1 for an invalid row or a dropped block;
+    ``block_valid`` [NB] (its length is the block capacity)."""
+    scat_idx: torch.Tensor
+    out_idx: torch.Tensor
+    block_valid: torch.Tensor
+
+
+def block_structure(coords: torch.Tensor, mask: torch.Tensor, nb_cap: int,
+                    bs: int = 4, halo: int = 1) -> BlockStructure:
+    """Blocks of side ``bs`` (a power of two) and halo ``halo`` (the
+    kernel's radius, at most bs / 2) of one canonical voxel set. Blocks past
+    ``nb_cap`` drop in code order, and their voxels neither scatter nor
+    read an output. Of a run of duplicate codes (PointFusion's merged set)
+    only the last row scatters, the representative the gather path's
+    lookup resolves to; every row of the run reads the shared output."""
+    if bs & (bs - 1) or halo * 2 > bs:
+        raise ValueError(f"block side {bs} must be a power of two of at "
+                         f"least twice the halo {halo}")
+    shift = bs.bit_length() - 1
+    hs = bs + 2 * halo
+    M = coords.shape[0]
+    dev = coords.device
+    coords = coords.long()
+    vcode = pack_code(coords, mask)
+    writer = torch.ones_like(mask)
+    writer[:-1] = vcode[:-1] != vcode[1:]
+    writer = writer & mask
+    bc = coords >> shift
+    bcode = pack_code(bc, mask)
+
+    # distinct blocks in code order, and each voxel's block rank
+    order = _argsort(bcode)
+    bcode_s = bcode[order]
+    mask_s = bcode_s != INVALID_CODE
+    first = _first_of_runs(bcode_s, mask_s)
+    seg = torch.cumsum(first.long(), 0) - 1
+    ok = mask_s & (seg < nb_cap)
+    btab = torch.full((nb_cap + 1,), INVALID_CODE, dtype=torch.long,
+                      device=dev)
+    btab[torch.where(first & ok, seg, nb_cap)] = bcode_s
+    btab = btab[:nb_cap]
+    own = torch.empty(M, dtype=torch.long, device=dev)
+    own[order] = torch.where(ok, seg, -1)
+    own = torch.where(mask, own, -1)
+
+    local = coords - (bc << shift)
+    # the neighbouring block along an axis whose halo holds the voxel: -1
+    # where local < halo, +1 where local >= bs - halo
+    d = torch.where(local < halo, -1, torch.where(local >= bs - halo, 1, 0))
+    drop = nb_cap * hs ** 3
+    cols = []
+    for sx in (0, 1):
+        for sy in (0, 1):
+            for sz in (0, 1):
+                sel = torch.tensor([sx, sy, sz], device=dev)
+                slot_ok = writer & (own >= 0)
+                if sx or sy or sz:
+                    # each selected axis must have a neighbouring block
+                    slot_ok = slot_ok & ((d != 0) | (sel == 0)).all(-1)
+                tb = bc + d * sel
+                slot_ok = slot_ok & ((tb >= 0) & (tb < (1 << CODE_BITS))
+                                     ).all(-1)
+                rank = own if not (sx or sy or sz) else _merge_lookup(
+                    btab, pack_code(tb, slot_ok)[:, None])[:, 0]
+                pos = coords - (tb << shift) + halo
+                flat = (rank * hs ** 3 + pos[:, 0] * hs * hs
+                        + pos[:, 1] * hs + pos[:, 2])
+                cols.append(torch.where(slot_ok & (rank >= 0), flat, drop))
+    out_idx = torch.where(
+        (own >= 0) & mask,
+        own * bs ** 3 + local[:, 0] * bs * bs + local[:, 1] * bs
+        + local[:, 2], -1)
+    return BlockStructure(scat_idx=torch.stack(cols, 1), out_idx=out_idx,
+                          block_valid=btab != INVALID_CODE)
+
+
+def block_conv_apply(feats: torch.Tensor, bst: BlockStructure,
+                     weight: torch.Tensor, bs: int = 4) -> torch.Tensor:
+    """Submanifold conv over a batched :class:`BlockStructure`: feats
+    [B, M, Cin], weight [k^3, Cin, Cout] in :func:`kernel_offsets`' x-major
+    order -> [B, M, Cout] in ``feats``' dtype (0 on invalid rows and rows
+    of dropped blocks). The same sum as :func:`subm_gather_matmul` in
+    another order. Each voxel is written into its blocks' halo tensors (a
+    copy to unique targets; the dropped ones all go to one dump row per
+    scene, sliced off), ``F.conv3d`` runs over [B * NB, Cin, hs, hs, hs]
+    with x as the depth axis, and the interior outputs are gathered back.
+    Autograd gives the backward: the copy's transpose is a gather. On a
+    card a float32 conv takes TF32 when ``torch.backends.cudnn.allow_tf32``
+    is set (PyTorch's default)."""
+    B, M, Cin = feats.shape
+    K = weight.shape[0]
+    k = round(K ** (1.0 / 3.0))
+    if k ** 3 != K:
+        raise ValueError(f"{K} kernel taps are not a cube")
+    hs = bs + k - 1
+    NB = bst.block_valid.shape[-1]
+    D = bst.scat_idx.shape[-1]
+    n = NB * hs ** 3                 # a scene's halo rows; row n: the dump
+    base = torch.arange(B, device=feats.device).view(B, 1, 1) * (n + 1)
+    src = feats[:, :, None, :].expand(B, M, D, Cin).reshape(-1, Cin)
+    halo = feats.new_zeros(B * (n + 1), Cin).index_copy(
+        0, (bst.scat_idx + base).reshape(-1), src)
+    halo = halo.view(B, n + 1, Cin)[:, :n].reshape(B * NB, hs, hs, hs, Cin)
+    w = weight.reshape(k, k, k, Cin, -1).permute(4, 3, 0, 1, 2)
+    out = F.conv3d(halo.permute(0, 4, 1, 2, 3), w.to(feats.dtype))
+    Cout = out.shape[1]
+    flat = out.permute(0, 2, 3, 4, 1).reshape(B, NB * bs ** 3, Cout)
+    y = torch.gather(flat, 1, bst.out_idx.clamp(min=0)[..., None].expand(
+        B, M, Cout))
+    return torch.where((bst.out_idx >= 0)[..., None], y,
+                       torch.zeros((), dtype=y.dtype, device=y.device))
 
 
 class DownStructure(NamedTuple):

@@ -12,8 +12,23 @@ Counterpart of the repository's ``train_network.py``: composes the same
 config tree (the port's own copy under ``unipre3d_tpu_torch/configs``),
 writes it to ``<output dir>/.hydra/config.yaml`` (default
 ``experiments_out/<date>/<time>``), resumes from ``model_latest.ckpt`` there
-if it exists, and runs the train steps up to ``opt.iterations`` on one
-device (the CUDA card unless ``--device`` names another).
+if it exists, and runs the train steps up to ``opt.iterations`` on the
+CUDA card unless ``--device`` names another device.
+
+Under several processes (``UNIPRE3D_COORDINATOR``,
+``UNIPRE3D_NUM_PROCESSES``, ``UNIPRE3D_PROCESS_ID``, or torchrun;
+parallel/distributed.py) it forms the process group before anything
+touches the device and runs one rank a process on the rank's device (the
+card ``LOCAL_RANK % device_count``, or ``--device``), as the JAX CLI over
+a multi-host mesh: ``opt.batch_size`` is the global batch, rounded down to
+a multiple of the world size, each rank reading its shard of it; the
+state is broadcast from rank 0 after the init, the warm start and a
+resume; the step reduces gradients, BatchNorm statistics and metrics over
+the ranks (training/trainer.py); the val split is sharded with padding, at
+JAX's per-rank val batch, and its means are averaged over the ranks; each
+rank has its own feature cache over its own shard; the config,
+checkpoints, logs and test videos are written by rank 0 alone, and every
+rank resumes from the same ``model_latest.ckpt``.
 
 It runs the JAX CLI's default run: the model computes in
 ``tpu.compute_dtype`` (``bfloat16`` by default; ``float32`` restores the
@@ -56,8 +71,10 @@ import time
 import numpy as np
 import torch
 
-from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.data import Loader, batch_to, get_dataset
+from unipre3d_tpu_torch.parallel import (all_reduce_mean, make_mesh,
+                                         maybe_initialize, process_count,
+                                         process_index, replicate, synced)
 from unipre3d_tpu_torch.training import checkpoint as ckpt_lib
 from unipre3d_tpu_torch.training.config import load_config, save_config
 from unipre3d_tpu_torch.training.feature_cache import (DeviceVAECache,
@@ -88,12 +105,18 @@ def _sync(device):
 
 
 def validate(eval_step, state, loader, device) -> dict:
-    """Mean novel-view PSNR and SSIM over the val split's batches."""
+    """Mean novel-view PSNR and SSIM over the val split's batches; under
+    several processes each batch's means are averaged over the ranks. The
+    shards are padded to one length and the ragged last batch is dropped,
+    so every rank's batch is full and of one size, and the plain mean over
+    ranks is the global batch's (JAX's SPMD eval step; JAX's ``pad_to``
+    never pads under those settings, so the port has none)."""
     psnrs, ssims = [], []
     for vb in loader.epoch(0):
-        res = eval_step(state, batch_to(vb, device))
-        psnrs.append(float(res["psnr_novel"]))
-        ssims.append(float(res["ssim_novel"]))
+        with synced():
+            res = eval_step(state, batch_to(vb, device))
+        psnrs.append(all_reduce_mean(float(res["psnr_novel"])))
+        ssims.append(all_reduce_mean(float(res["ssim_novel"])))
     return {"psnr_novel": float(np.mean(psnrs)) if psnrs else 0.0,
             "ssim_novel": float(np.mean(ssims)) if ssims else 0.0}
 
@@ -175,15 +198,23 @@ def main(argv=None) -> dict:
     name), ``hit_rate`` (the feature cache's over the run; None without
     the cache) and, with the cache, ``cache_ms`` (each batch's attach,
     synchronized, before its step), ``cache_counts`` (its hits, host-tier
-    hits and misses) and ``cache_gib`` (its device buffer)."""
+    hits and misses) and ``cache_gib`` (its device buffer); with the block
+    executor ``block_dropped`` (each step's rows of dropped blocks, per
+    level: stem, fine, stages). Under several processes every rank returns
+    the global batch's metrics, ``reduce_ms`` (each step's gradient
+    all-reduce) and its ``rank`` and ``world``."""
     args = parse_args(argv)
+    # form the process group before anything touches the device
+    maybe_initialize(device=args.device)
+    rank, world = process_index(), process_count()
     cfg = load_config(args.config_name, config_dir=args.config_dir,
                       overrides=args.overrides)
-    device = resolve_device(args.device)
+    device = make_mesh(args.device)
     out_dir = args.output_dir or os.path.join(
         "experiments_out", time.strftime("%Y-%m-%d/%H-%M-%S"))
     os.makedirs(out_dir, exist_ok=True)
-    save_config(cfg, os.path.join(out_dir, ".hydra", "config.yaml"))
+    if rank == 0:
+        save_config(cfg, os.path.join(out_dir, ".hydra", "config.yaml"))
     if float(cfg.data.get("mix_prob", 0.0)) > 0.0:
         # Mix3d merges only the point-cloud keys: with rendering
         # supervision the mixed cloud would train against scene A's
@@ -199,12 +230,17 @@ def main(argv=None) -> dict:
     lpips_path = existing_path(cfg, "lpips_weights")
     seed = int(cfg.general.random_seed)
     t0 = time.perf_counter()
-    batch_size = int(cfg.opt.batch_size)
-    train_loader = Loader(get_dataset(cfg, "train", device), batch_size,
-                          seed=seed)
+    batch_size = int(cfg.opt.batch_size)      # the global batch
+    if batch_size % world:
+        batch_size = max(world, batch_size - batch_size % world)
+        print(f"[train] batch_size adjusted to {batch_size} for {world} "
+              f"processes", flush=True)
+    local_bs = batch_size // world
+    train_loader = Loader(get_dataset(cfg, "train", device), local_bs,
+                          seed=seed, shard_id=rank, num_shards=world)
     val_ds = get_dataset(cfg, "val", device)
-    val_loader = Loader(val_ds, max(1, min(batch_size, len(val_ds))),
-                        shuffle=False)
+    val_loader = Loader(val_ds, max(1, min(local_bs, -(-len(val_ds) // world))),
+                        shuffle=False, shard_id=rank, num_shards=world)
     test_loader = None       # built at the first test-video iteration
     compute_dtype = compute_dtype_of(cfg)
     model, state = create_train_state(cfg, device=device, seed=seed,
@@ -230,10 +266,12 @@ def main(argv=None) -> dict:
     if os.path.exists(latest):
         state, best_psnr = ckpt_lib.load_checkpoint(latest, model, state)
         print(f"[train] resumed from step {state.step}", flush=True)
+    replicate(model, state)
     _sync(device)
     setup_s = time.perf_counter() - t0
     dtype_name = str(compute_dtype).replace("torch.", "")
-    print(f"[train] device={device} params={n_params / 1e6:.2f}M "
+    print(f"[train] rank {rank}/{world} device={device} "
+          f"params={n_params / 1e6:.2f}M "
           f"backbone={cfg.model.backbone_type} compute {dtype_name} "
           f"setup {setup_s:.1f} s output {out_dir}", flush=True)
     if cache is not None:
@@ -248,7 +286,7 @@ def main(argv=None) -> dict:
     result = {"losses": [], "psnrs": [], "grad_norms": [], "nan_skipped": [],
               "step_ms": [], "geometry_ms": [], "valid_rows": [], "val": [],
               "videos": [], "setup_s": setup_s, "output_dir": out_dir,
-              "compute_dtype": dtype_name}
+              "compute_dtype": dtype_name, "rank": rank, "world": world}
     if cache is not None:
         result["cache_ms"] = []
     batches = train_loader.iter_from(state.step)
@@ -277,6 +315,9 @@ def main(argv=None) -> dict:
                     + [int(c.mask.sum()) for c in geo.clusters])
                 result.setdefault("pool_dropped", []).append(
                     [int(x) for x in geo.pool_dropped.sum(0)])
+            if getattr(geo, "block_dropped", None) is not None:
+                result.setdefault("block_dropped", []).append(
+                    [int(x) for x in geo.block_dropped.sum(0)])
         _sync(device)
         t = time.perf_counter()
         metrics = train_step(state, batch)
@@ -291,6 +332,8 @@ def main(argv=None) -> dict:
         for k in ("dups", "budget_dropped", "cap_dropped"):
             if k in metrics:
                 result.setdefault(k, []).append(int(metrics[k]))
+        if "reduce_ms" in metrics:
+            result.setdefault("reduce_ms", []).append(metrics["reduce_ms"])
         samples_since += batch_size
         if it % loss_log == 0:
             now = time.perf_counter()
@@ -307,13 +350,15 @@ def main(argv=None) -> dict:
             result["val"].append(val)
             logger.log(it, {"psnr_novel": val["psnr_novel"],
                             "ssim_novel": val["ssim_novel"]}, prefix="val")
-            ckpt_lib.save_checkpoint(latest, model, state, best_psnr)
+            if rank == 0:
+                ckpt_lib.save_checkpoint(latest, model, state, best_psnr)
             if val["psnr_novel"] > best_psnr:
                 best_psnr = val["psnr_novel"]
-                ckpt_lib.save_checkpoint(
-                    os.path.join(out_dir, "model_best.ckpt"), model, state,
-                    best_psnr)
-        if it % loop_log == 0:
+                if rank == 0:
+                    ckpt_lib.save_checkpoint(
+                        os.path.join(out_dir, "model_best.ckpt"), model,
+                        state, best_psnr)
+        if it % loop_log == 0 and rank == 0:
             from unipre3d_tpu_torch.training.video import \
                 generate_test_examples
             if test_loader is None:
@@ -346,4 +391,8 @@ def main(argv=None) -> dict:
 
 
 if __name__ == "__main__":
-    main()
+    try:
+        main()
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()

@@ -1,8 +1,10 @@
 """Training logger: the console, ``metrics.jsonl`` in the output directory,
 and wandb when configured.
 
-Port of unipre3d_tpu/training/logger.py (one process, so no rank gating).
-Each ``log`` call writes one JSON line of ``<prefix>/<key>`` values with
+Port of unipre3d_tpu/training/logger.py. Under several processes only
+rank 0 (``is_main``) writes, prints and starts wandb, as JAX's gates on
+process index 0; the other ranks' ``log`` returns its dict alone. Each
+``log`` call writes one JSON line of ``<prefix>/<key>`` values with
 ``step`` and ``wall_s`` (seconds since the logger started), adds
 ``log10(loss + 1e-8)`` beside every loss term, and prints the line. wandb
 is imported and started only when ``wandb.entity`` is set; if that fails
@@ -17,13 +19,19 @@ import os
 import time
 from typing import Dict, Optional
 
+from unipre3d_tpu_torch.parallel.distributed import process_index
+
 
 class Logger:
     def __init__(self, cfg, out_dir: str):
         self.cfg = cfg
         self.out_dir = out_dir
         self.wandb = None
+        self.jsonl = None
         self._t0 = time.time()
+        self.is_main = process_index() == 0
+        if not self.is_main:
+            return
         os.makedirs(out_dir, exist_ok=True)
         self.jsonl = open(os.path.join(out_dir, "metrics.jsonl"), "a")
         entity = (cfg.get("wandb") or {}).get("entity")
@@ -64,6 +72,8 @@ class Logger:
                 flat[f"{k}_log10"] = math.log10(max(v, 0.0) + 1e-8)
         flat["step"] = int(step)
         flat["wall_s"] = round(time.time() - self._t0, 1)
+        if not self.is_main:
+            return flat
         self.jsonl.write(json.dumps(flat) + "\n")
         self.jsonl.flush()
         msg = " ".join(f"{k}={v:.4g}" if isinstance(v, float) else f"{k}={v}"
@@ -87,6 +97,7 @@ class Logger:
                 print(f"[logger] wandb video upload failed: {e}", flush=True)
 
     def close(self) -> None:
-        self.jsonl.close()
+        if self.jsonl is not None:
+            self.jsonl.close()
         if self.wandb:
             self.wandb.finish()

@@ -31,11 +31,24 @@ The model computes in the ``dtype`` given to ``create_train_state``
 (float32 by default, as the JAX package's; the CLI passes
 ``compute_dtype_of(cfg)``, bfloat16 by default); the parameters, the
 optimizer, the EMA and the renderer stay float32.
+
+Under several processes (parallel/distributed.py) each rank steps on its
+shard of the global batch: the forward runs inside ``synced()`` (BatchNorm
+statistics and DropPath's mask of the global batch), the gradients are
+averaged over ranks in one flat buffer right after ``torch.autograd.grad``
+and before the norm, the clip, the NaN skip and AdamW, so every rank takes
+the same decision and update, and the metrics are the global batch's:
+``loss`` and ``lpips`` are means over ranks, ``psnr`` comes from the
+reduced MSE (JAX's PSNR of the global batch, not a mean of the ranks'
+PSNRs), ``grad_norm`` is the reduced gradient's, and the binned route's
+counts are sums. ``DistributedDataParallel`` would not do: it reduces in
+hooks that ``torch.autograd.grad`` never runs.
 """
 
 from __future__ import annotations
 
 import math
+import time
 from dataclasses import dataclass
 from typing import Dict, List, Tuple
 
@@ -55,6 +68,7 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_binned import \
     rasterize_projected_binned
 from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
     rasterize_dense_batched
+from unipre3d_tpu_torch.parallel import distributed as dist_lib
 from unipre3d_tpu_torch.utils import losses as loss_lib
 from unipre3d_tpu_torch.utils.lpips import lpips_fn
 
@@ -143,6 +157,33 @@ class AdamW:
         torch._foreach_add_(self.params, torch._foreach_mul(upd, -self.lr()))
         self.count += 1
         return True
+
+
+class _Clock:
+    """Elapsed time of a stretch of device work: CUDA events on a card,
+    the host clock on the CPU (where the work is synchronous)."""
+
+    def __init__(self, device):
+        self.cuda = torch.device(device).type == "cuda"
+        if self.cuda:
+            self.start = torch.cuda.Event(enable_timing=True)
+            self.end = torch.cuda.Event(enable_timing=True)
+            self.start.record()
+        else:
+            self.t = time.perf_counter()
+
+    def stop(self) -> "_Clock":
+        if self.cuda:
+            self.end.record()
+        else:
+            self.t = time.perf_counter() - self.t
+        return self
+
+    def ms(self) -> float:
+        if self.cuda:
+            self.end.synchronize()
+            return self.start.elapsed_time(self.end)
+        return self.t * 1e3
 
 
 def make_optimizer(cfg, params: List[torch.Tensor]) -> AdamW:
@@ -323,10 +364,41 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
     return torch.func.functional_call(model, params, args, kwargs)
 
 
+def all_reduce_grads(grads) -> List[torch.Tensor]:
+    """The gradients averaged over ranks, through one flat buffer."""
+    flat = torch.cat([g.reshape(-1) for g in grads])
+    dist_lib.all_reduce_sum_(flat).div_(dist_lib.process_count())
+    return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in
+                                                      grads]), grads)]
+
+
+def _reduce_metrics(metrics: Dict, mse: torch.Tensor) -> Dict:
+    """The global batch's metrics from the ranks' (equal local batches):
+    means of the losses, PSNR of the mean MSE, sums of the counts."""
+    means = [k for k in ("loss", "lpips") if k in metrics]
+    sums = [k for k in ("dups", "budget_dropped", "cap_dropped")
+            if k in metrics]
+    vals = torch.stack([torch.as_tensor(metrics[k], dtype=torch.float64)
+                        .detach().cpu() for k in means + sums]
+                       + [mse.detach().double().cpu()])
+    dist_lib.all_reduce_sum_(vals)
+    w = dist_lib.process_count()
+    out = dict(metrics)
+    for i, k in enumerate(means):
+        out[k] = vals[i] / w
+    for i, k in enumerate(sums):
+        out[k] = vals[len(means) + i]
+    out["psnr"] = -10.0 * torch.log10(torch.clamp_min(vals[-1] / w, 1e-12))
+    return out
+
+
 def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
     """-> ``train_step(state, batch) -> metrics`` (updates in place): loss,
     psnr, grad_norm, nan_skipped, and on the binned route the render's
-    ``dups``, ``budget_dropped`` and ``cap_dropped``.
+    ``dups``, ``budget_dropped`` and ``cap_dropped``; under several
+    processes the global batch's (see the module docstring) and
+    ``reduce_ms``, the gradient all-reduce's time (CUDA events on the
+    card).
 
     With an ``lpips`` module (utils/lpips.py) and ``opt.lambda_lpips`` not
     0, the loss gains ``lambda_lpips`` x the mean LPIPS of the supervision
@@ -352,28 +424,38 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
 
     def train_step(state: TrainState, batch) -> Dict[str, float]:
         render_stats = {}
+        world = dist_lib.process_count()
         # the named ranges label a torch.profiler trace of the step
         # (tools/profile_torch_step.py); outside a profiler they cost a
         # few microseconds
         model.train()
-        with record_function("step/forward"):
-            gaussians = predict(model, batch, n_in, state.generator)
-        with record_function("step/render"):
-            rendered = render_supervision_views(gaussians, batch, cfg,
-                                                bg_color, render_stats)
-            gt = batch["gt_images"][:, n_in:]
-            loss, metrics = compute_loss(rendered, gt, cfg, bg_color)
-        if lpips is not None:
-            with record_function("step/lpips"):
-                if state.step > start_lpips_after:
-                    lp = lpips_fn(lpips, rendered.flatten(0, 1) * 2 - 1,
-                                  gt.flatten(0, 1) * 2 - 1).mean()
-                else:
-                    lp = torch.zeros((), device=loss.device)
-                loss = loss + lambda_lpips * lp
-                metrics.update(lpips=lp, loss=loss)
-        with record_function("step/backward"):
-            grads = torch.autograd.grad(loss, params)
+        with dist_lib.synced():
+            with record_function("step/forward"):
+                gaussians = predict(model, batch, n_in, state.generator)
+            with record_function("step/render"):
+                rendered = render_supervision_views(gaussians, batch, cfg,
+                                                    bg_color, render_stats)
+                gt = batch["gt_images"][:, n_in:]
+                loss, metrics = compute_loss(rendered, gt, cfg, bg_color)
+            if lpips is not None:
+                with record_function("step/lpips"):
+                    if state.step > start_lpips_after:
+                        lp = lpips_fn(lpips, rendered.flatten(0, 1) * 2 - 1,
+                                      gt.flatten(0, 1) * 2 - 1).mean()
+                    else:
+                        lp = torch.zeros((), device=loss.device)
+                    loss = loss + lambda_lpips * lp
+                    metrics.update(lpips=lp, loss=loss)
+            with record_function("step/backward"):
+                grads = torch.autograd.grad(loss, params)
+        metrics.update(render_stats)
+        if world > 1:
+            with record_function("step/reduce"):
+                t0 = _Clock(loss.device)
+                grads = all_reduce_grads(grads)
+                reduce_clock = t0.stop()
+                metrics = _reduce_metrics(
+                    metrics, ((rendered.detach() - gt) ** 2).mean())
         with record_function("step/optimizer"):
             # optax.global_norm: sqrt of the sum of every squared entry
             grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
@@ -388,10 +470,11 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
                         for n, p in zip(names, params):
                             state.ema[n].mul_(ema_beta).add_(
                                 p * (1.0 - ema_beta))
-        metrics.update(render_stats)
         metrics = {k: float(v.detach()) for k, v in metrics.items()}
         metrics["grad_norm"] = float(grad_norm)
         metrics["nan_skipped"] = float(not applied)
+        if world > 1:
+            metrics["reduce_ms"] = reduce_clock.ms()
         return metrics
 
     return train_step
