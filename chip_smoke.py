@@ -111,7 +111,23 @@ Phases, all of them, in order; any failure exits non-zero:
    step and gradient all-reduce times; one 120 MB all-reduce, the port's
    (gloo given the CUDA tensor) and staged through the host by hand; one
    NCCL world of one process, a default-run step and NCCL's all-reduce and
-   broadcast on the card.
+   broadcast on the card. Then ``phase_tensor_parallel``: tensor
+   parallelism on a (data, model) grid, each rank a process through
+   ``dryrun_multichip.run_steps`` with ``replicate(require_tp_match=True)``
+   (gloo, the parent's cache freed first): the full-width default
+   transformer run (bf16 + cache) at 2 x 2 and a global batch of 32, three
+   steps, with a rank's step ms, the model group's all-reduces a step
+   (count, ms by CUDA events), the data group's gradient all-reduce ms and
+   each rank's peak; the float32 transformer at 2 x 2 (DropPath off), the
+   float32 Mamba3D (the scan pair at 384 channels a rank) and PTv3 (binned)
+   at 1 x 2, all at lr 1e-8, each held against the same run in one
+   process (loss 1e-5, PTv3's max(1e-5, 3x its float32/float64 gap on the
+   card), Mamba3D's 3e-4; grad norm 1e-4, PTv3's 1e-3, Mamba3D's 3e-4;
+   parameters 0.02 lr, PTv3's 0.05);
+   every rank's replicated parameters bit for bit the same after the steps
+   and its metrics within 1e-6 of rank 0's. The dense pair must launch on
+   the transformer and Mamba3D runs, the scan pair on Mamba3D's, the binned
+   pair on PTv3's.
 9. block (``phase_block``): three full-width default-run
    ``sparseunet_pretraining`` steps with val on the binned route under
    ``tpu.sparse_conv_impl=block`` and under the gather executor, in turns
@@ -516,16 +532,19 @@ def scan_case(Bsz, L, D, seed, device):
     return [t.to(device) for t in ins]
 
 
-def mixer_layout(ins):
+def mixer_layout(ins, d_model):
     """The scan inputs as the default run's mixer hands them over
     (models/mamba_mixer.py): u float32; delta bfloat16 (dt_proj's output);
     B and C bfloat16 views of one [Bsz, L, dt_rank + 32] tensor (x_proj's
-    output, dt_rank = ceil(d_model / 16), d_model = D / 2); z a bfloat16
-    view of one [Bsz, L, 2 D] tensor (in_proj's output, its second half)."""
+    output, dt_rank = ceil(d_model / 16)); z a bfloat16 view of one
+    [Bsz, L, 2 D] tensor (in_proj's output, its second half). One process
+    scans D = 2 d_model channels; a model rank of M its D = 2 d_model / M,
+    x and z the halves of its own in_proj output (row stride 2 D) and
+    dt, B, C the model group's sum of x_proj's partial products."""
     import torch
     u, delta, A, Bm, Cm, Dv, z, bias = ins
     Bsz, L, D = u.shape
-    rank = -(-(D // 2) // 16)
+    rank = -(-d_model // 16)
     xp = torch.randn(Bsz, L, rank + 2 * Bm.shape[-1], device=u.device)
     xp[..., rank:rank + Bm.shape[-1]] = Bm
     xp[..., rank + Bm.shape[-1]:] = Cm
@@ -633,7 +652,9 @@ def phase_scan_kernels(device):
     float32 copies of the same values), and edge cases: L = 1, L = 37
     (which no segment or tile divides), L one step either side of a
     backward segment (8 steps), a forward tile (16) and two tiles, at D =
-    96 (a backward CTA and a half: its channel edge masked). The output
+    96 (a backward CTA and a half: its channel edge masked); and at a
+    model rank's share of Mamba3D in the tensor_parallel phase's 1 x 2
+    grid (D = 384, float32 and the rank's mixer strides). The output
     to TOL_SCAN_FWD and every input's gradient to TOL_SCAN_GRAD
     (``grad_err``: beyond the rounding into a bfloat16 input's dtype), and
     two backward launches on the same inputs must give the same bits. Times
@@ -642,19 +663,24 @@ def phase_scan_kernels(device):
     backward and of its scan call (``scan_launches``)."""
     import torch
     from unipre3d_tpu_torch.ops import scan as sc
-    shapes = [("Mamba3D", 32, 129, 768, False),
-              ("PCM stage 0", 32, 524, 768, False),
-              ("PCM stage 3", 32, 76, 1536, False),
-              ("Mamba3D mixer dtypes", 32, 129, 768, True),
-              ("PCM stage 0 mixer dtypes", 32, 524, 768, True),
-              ("edge L=1", 4, 1, 768, False), ("edge L=37", 3, 37, 1536, False)]
+    # (label, batch, L, D, the mixer's d_model for its dtypes and strides,
+    # else None: float32, contiguous)
+    shapes = [("Mamba3D", 32, 129, 768, None),
+              ("PCM stage 0", 32, 524, 768, None),
+              ("PCM stage 3", 32, 76, 1536, None),
+              ("Mamba3D mixer dtypes", 32, 129, 768, 384),
+              ("PCM stage 0 mixer dtypes", 32, 524, 768, 384),
+              ("edge L=1", 4, 1, 768, None), ("edge L=37", 3, 37, 1536, None),
+              # a model rank of Mamba3D's 1 x 2 grid (tensor_parallel)
+              ("Mamba3D TP rank", 32, 129, 384, None),
+              ("Mamba3D TP rank mixer dtypes", 32, 129, 384, 384)]
     shapes += [(f"tile edge L={L}", 2, L, 96, mixer)
-               for L in (7, 9, 15, 17, 31, 33) for mixer in (False, True)]
+               for L in (7, 9, 15, 17, 31, 33) for mixer in (None, 48)]
     results = {"fwd_err": 0.0, "bwd_err": 0.0}
     for si, (label, Bsz, L, D, mixer) in enumerate(shapes):
         ins = scan_case(Bsz, L, D, si, device)
         if mixer:
-            ins = mixer_layout(ins)
+            ins = mixer_layout(ins, mixer)
         g = torch.randn(ins[0].shape, device=device,
                         generator=torch.Generator(device).manual_seed(si))
         y, chk = sc.scan_fwd(*ins, True, keep_states=True)
@@ -1960,23 +1986,24 @@ def phase_parity():
                     SMALL_SCENE_OVERRIDES, "SparseUNet/PointFusion ops")
 
 
-def scene_loss(cfg, batch, dtype):
-    """The scene step's loss on the CPU from seed-0 weights, the backbone
-    computing in ``dtype`` (the renderer stays float32)."""
+def scene_loss(cfg, batch, dtype, device="cpu"):
+    """The scene step's loss on ``device`` from seed-0 weights, the
+    backbone computing in ``dtype`` (the renderer stays float32)."""
     import torch
     from unipre3d_tpu_torch.data import batch_to
     from unipre3d_tpu_torch.training import trainer
-    model, _ = trainer.create_train_state(cfg, device="cpu", seed=0,
+    model, _ = trainer.create_train_state(cfg, device=device, seed=0,
                                           dtype=dtype)
-    b = batch_to(batch, "cpu")
+    b = batch_to(batch, device)
+    n_in = int(cfg.data.input_images)
     model.train()
     with torch.no_grad():
-        g = model(b["point_cloud"], b["gt_images"][:, :2],
+        g = model(b["point_cloud"], b["gt_images"][:, :n_in],
                   unprojected_coords=b["unprojected_coords"])
         bg = trainer.bg_color_of(cfg)
         loss, _ = trainer.compute_loss(
             trainer.render_supervision_views(g, b, cfg, bg),
-            b["gt_images"][:, 2:], cfg, bg)
+            b["gt_images"][:, n_in:], cfg, bg)
     return float(loss)
 
 
@@ -3167,10 +3194,10 @@ torch.distributed.destroy_process_group()
 """
 
 
-def spawn_ranks(world, args, timeout):
-    """DIST_WORKER in ``world`` processes of one process group (the
-    ``UNIPRE3D_*`` launch, a free local port) on this card; each must exit
-    0 within ``timeout`` seconds. Returns each rank's results."""
+def spawn_ranks(world, args, timeout, program=None):
+    """``program`` (DIST_WORKER) in ``world`` processes of one process
+    group (the ``UNIPRE3D_*`` launch, a free local port) on this card; each
+    must exit 0 within ``timeout`` seconds. Returns each rank's results."""
     import socket
     s = socket.socket()
     s.bind(("127.0.0.1", 0))
@@ -3187,7 +3214,8 @@ def spawn_ranks(world, args, timeout):
                     "PYTHONPATH": repo + os.pathsep
                     + env.get("PYTHONPATH", "")})
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", DIST_WORKER, json.dumps(args)], env=env,
+            [sys.executable, "-c", program or DIST_WORKER,
+             json.dumps(args)], env=env,
             cwd=repo, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     outs = []
@@ -3366,6 +3394,298 @@ def phase_distributed(device_line, tmp):
     for k, v in run["launches"].items():
         launches[k] += v
     log(f"[distributed] phase {time.perf_counter() - t_phase:.1f} s")
+    return launches
+
+
+# ---------------------------------------------------------------------------
+# slice 14: tensor parallelism on a (data, model) grid
+
+TP_STEPS = 3
+# The ranks of a grid against each other: the replicated part of the step
+# runs on every rank of a model group, and the card's float atomics (the
+# splat backward's) round it otherwise on each, so their metrics part by
+# rounding (float32 losses by 1.8e-8 at step 2 on the H100); their
+# replicated parameters are held bit for bit.
+TOL_TP_RANKS = 1e-6
+# The float32 object runs (transformer 2 x 2, Mamba3D 1 x 2) against one
+# process at step 2; steps 1 and 3 are held to TOL_DIST_LOSS and
+# TOL_DIST_GRAD_NORM. A run's step-2 loss can take one of two values, in
+# one process as on the grid. Mamba3D: 0.2467158-0.2467166 in 14 of 21
+# one-process runs, 0.2467407-0.2467415 (1.0e-4 away) in 7; the
+# transformer: 0.26296693-0.26296696 in 20 runs and in calls before, once
+# 0.26296407 (1.09e-5 away, grad norm 9.2e-6; tools/repeat_step_check.py,
+# H100, 700 W). The op is the dense splat's stable depth sort
+# (ops/rasterizer/splat_dense.py ``sorted_table``): in the synthetic set's
+# step-2 batch, which both runs draw, some gaussians' depths lie closer
+# than the step-1 update's rounding moves them, and which comes first
+# flips. That rounding differs from run to run: the conv biases before a
+# BatchNorm have a zero true gradient, so Adam steps them by +-lr on the
+# sign of rounding noise, which the float atomics of the backward make
+# run-dependent. In traced pairs of runs every module's output before the
+# sort agrees within 1e-5; the sorted table differs in every pair, and
+# where a flipped pair covers many pixels the renders part by 7.9e-3 on
+# 1.7% of the pixels and Mamba3D's loss by 1.0e-4. The limit is ~3x that.
+TOL_TP_OBJECT_STEP2 = 3e-4
+# PTv3's float32 run (binned route) against one process: its gradient norm
+# and parameters. Readings at lr 1e-8 on the H100 (700 W), the largest
+# step of each of four calls: gradient norm 1.83e-6, 1.64e-5, 7.08e-6,
+# 2.79e-5; parameters 3.55e-4, 3.28e-4, 3.46e-4, 3.72e-4 lr. The limits
+# are ~3x the largest; its loss is held to its float32/float64 floor.
+TOL_TP_PTV3_GRAD_NORM = 8e-5
+TOL_TP_PTV3_PARAM = 1.1e-3
+TP_COUNTERS = ("dense_fwd", "dense_bwd", "scan_fwd", "scan_bwd",
+               "binned_fwd", "binned_bwd")
+# (label, config, overrides, model ranks, held against one process)
+TP_OBJECT_RUNS = (
+    ("transformer", "transformer_pretraining",
+     OBJECT_ARGV[2:] + [f"opt.batch_size={DIST_OBJECT_BATCH}"], 2, False),
+    ("transformer_f32", "transformer_pretraining",
+     OBJECT_ARGV[2:] + DIST_OBJECT_HOLD, 2, True))
+TP_PAIR_RUNS = (
+    ("mamba3d_f32", "mamba3d_pretraining",
+     ["data.dataset_root=synthetic", DIST_HOLD_LR] + FLOAT32_PINS, 2, True),
+    ("ptv3_f32", "ptv3_pretraining",
+     PTV3_ARGV[2:] + FLOAT32_PINS + ["tpu.raster_impl_train=pallas_binned",
+                                     DIST_HOLD_LR], 2, True))
+
+# The program of each rank: ``dryrun_multichip.run_steps`` of every run on
+# its grid; it writes its results to <base>/rank<i>.json and rank 0 the
+# held runs' parameters (gathered over the model group).
+TP_WORKER = r"""
+import json, os, sys
+import numpy as np
+import torch
+torch.backends.cuda.matmul.allow_tf32 = False
+torch.backends.cudnn.allow_tf32 = False
+a = json.loads(sys.argv[1])
+from unipre3d_tpu_torch import dryrun_multichip as dr, parallel
+from unipre3d_tpu_torch.ops import scan as sc
+from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+from unipre3d_tpu_torch.training.config import load_config
+COUNTERS = {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
+            "scan_fwd": sc.SCAN_FWD, "scan_bwd": sc.SCAN_BWD,
+            "binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD}
+parallel.maybe_initialize()
+r, w = parallel.process_index(), parallel.process_count()
+out = {"rank": r, "world": w, "backend": torch.distributed.get_backend(),
+       "runs": {}}
+widths = set()                       # the scan's channels a launch
+real_fwd = sc.scan_fwd
+
+
+def scan_fwd(u, *args, **kw):
+    widths.add(u.shape[-1])
+    return real_fwd(u, *args, **kw)
+
+
+sc.scan_fwd = scan_fwd
+for label, config, over, mp, hold in a["runs"]:
+    widths.clear()
+    for k in COUNTERS.values():
+        k.launches = 0
+    res = dr.run_steps(load_config(config, overrides=over), mp, a["steps"],
+                       device="cuda", keep_params=hold)
+    torch.cuda.synchronize()
+    res["launches"] = {n: k.launches for n, k in COUNTERS.items()}
+    res["scan_widths"] = sorted(widths)
+    params = res.pop("params", None)
+    if params is not None and r == 0:
+        np.savez(os.path.join(a["base"], f"{label}_params.npz"), **params)
+    out["runs"][label] = res
+    torch.cuda.empty_cache()
+with open(os.path.join(a["base"], f"rank{r}.json"), "w") as f:
+    json.dump(out, f)
+torch.distributed.destroy_process_group()
+"""
+
+
+def tp_loss_floor(config, overrides, device_line):
+    """max(1e-5, 3x the float32 loss's own rounding) of a config's first
+    batch on the card: its loss from seed-0 weights with the backbone in
+    float32 against float64 (the renderer float32 both times; DropPath and
+    the order shuffle off, whose draws take no generator here), as the
+    PTv3 parity phase reads it on the CPU."""
+    import torch
+    from unipre3d_tpu_torch.data import Loader, get_dataset
+    from unipre3d_tpu_torch.training.config import load_config
+    cfg = load_config(config, overrides=overrides + [
+        "model.backbone_overrides={drop_path: 0.0, shuffle_orders: false}"])
+    loader = Loader(get_dataset(cfg, "train", "cuda"),
+                    int(cfg.opt.batch_size), seed=0)
+    it = loader.iter_from(0)
+    batch = next(it)
+    it.close()
+    loader.close()
+    l32, l64 = (scene_loss(cfg, batch, dt, device="cuda")
+                for dt in (torch.float32, torch.float64))
+    own = abs(l32 - l64) / abs(l64)
+    log(f"[tensor_parallel] {config}: first batch's loss float32 "
+        f"{l32:.8f}, float64 backbone {l64:.8f}: own rounding {own:.2e} on "
+        f"{device_line}")
+    return max(TOL_DIST_LOSS, 3 * own)
+
+
+def hold_tp_vs_one(label, ranks, one, base, lr, tol_loss, tol_gn, tol_div,
+                   device_line):
+    """A grid's run against the one-process run of the same global
+    batches and weights: each step's loss within ``tol_loss`` and gradient
+    norm within ``tol_gn``, relative (each a limit for every step or a
+    list, one a step); the trainable parameters after the
+    last step (gathered over the model group) by the mean-divergence rule,
+    within ``tol_div`` lr (the ranks' own agreement: ``hold_tp_ranks``)."""
+    import numpy as np
+    a = ranks[0]
+    tol_loss, tol_gn = ([t] * TP_STEPS if isinstance(t, float) else list(t)
+                        for t in (tol_loss, tol_gn))
+    loss = [abs(x - y) / abs(y) for x, y in zip(a["losses"], one["losses"])]
+    gn = [abs(x - y) / abs(y) for x, y in zip(a["grad_norms"],
+                                              one["grad_norms"])]
+    with np.load(os.path.join(base, f"{label}_params.npz")) as z:
+        pa = {k: z[k] for k in z.files}
+    pb = one["params"]
+    if set(pa) != set(pb):
+        raise AssertionError(f"{label}: parameter names differ")
+    div = sum(float(np.abs(pa[n] - pb[n]).sum()) for n in pb) / sum(
+        pb[n].size for n in pb) / lr
+    grid = a["grid"]
+    log(f"[tensor_parallel] {label}: {grid['data']} x {grid['model']} vs 1 "
+        f"process, {TP_STEPS} steps at {DIST_HOLD_LR}: losses "
+        f"{a['losses']} vs {one['losses']}; per step rel gap "
+        f"{[f'{g:.2e}' for g in loss]} (tol "
+        f"{[f'{t:.2e}' for t in tol_loss]}); grad norms "
+        f"{[f'{g:.2e}' for g in gn]} (tol {[f'{t:g}' for t in tol_gn]}); "
+        f"parameters mean "
+        f"|diff| {div:.2e} lr (tol {tol_div:g}) on {device_line}")
+    if len(loss) != TP_STEPS or div > tol_div or \
+            any(g > t for g, t in zip(loss, tol_loss)) or \
+            any(g > t for g, t in zip(gn, tol_gn)):
+        raise AssertionError(f"{label}: the grid's run disagrees with the "
+                             f"one-process run")
+
+
+def hold_tp_ranks(label, ranks):
+    """The ranks of a grid's run: the replicated parameters bit for bit
+    the same on every rank after the steps (the model group averages
+    their gradients); each step's loss and gradient norm within
+    TOL_TP_RANKS of rank 0's, relative. The ranks of a model group
+    compute the replicated part of the step each on its own, and the
+    card's float atomics round it otherwise on each. Returns the largest
+    relative gap."""
+    digests = {r["replicated_sha1"] for r in ranks}
+    gap = max(abs(x - y) / abs(y) for r in ranks for k in ("losses",
+                                                           "grad_norms")
+              for x, y in zip(r[k], ranks[0][k]))
+    log(f"[tensor_parallel] {label}: replicated parameters after the steps"
+        f" bit for bit the same on every rank: {len(digests) == 1}; the "
+        f"ranks' losses and grad norms, largest rel gap to rank 0's "
+        f"{gap:.2e} (tol {TOL_TP_RANKS:g})")
+    if len(digests) != 1 or gap > TOL_TP_RANKS:
+        raise AssertionError(f"{label}: the ranks disagree")
+    return gap
+
+
+def phase_tensor_parallel(device_line, tmp):
+    """Tensor parallelism on the one card, each rank a process (gloo: NCCL
+    refuses two ranks on one device) running ``dryrun_multichip.run_steps``
+    on a (data, model) grid with Megatron splits (``replicate(
+    require_tp_match=True)``): the full-width default transformer run (bf16
+    + cache) at 2 x 2 and a global batch of 32, three steps, with each
+    rank's step time, the model group's all-reduces a step (count and ms by
+    CUDA events), the data group's gradient all-reduce and peak memory;
+    the float32 transformer run (DropPath off, lr 1e-8) at 2 x 2 and the
+    float32 full-width Mamba3D (lr 1e-8, the scan at 384 channels a rank)
+    and PTv3 (binned route, lr 1e-8) runs at 1 x 2, each held against the
+    same run in one process (this one) on the same global batches
+    (``hold_tp_vs_one``). Returns the kernels' launches."""
+    import torch
+    from unipre3d_tpu_torch import dryrun_multichip as dr
+    from unipre3d_tpu_torch.ops import scan as sc
+    from unipre3d_tpu_torch.ops.rasterizer import splat_binned as sb
+    from unipre3d_tpu_torch.ops.rasterizer import splat_dense as sd
+    from unipre3d_tpu_torch.training.config import load_config
+    counters = {"dense_fwd": sd.DENSE_FWD, "dense_bwd": sd.DENSE_BWD,
+                "scan_fwd": sc.SCAN_FWD, "scan_bwd": sc.SCAN_BWD,
+                "binned_fwd": sb.BINNED_FWD, "binned_bwd": sb.BINNED_BWD}
+    t_phase = time.perf_counter()
+    base = os.path.join(tmp, "tp")
+    held = torch.cuda.memory_reserved() / 2 ** 30
+    torch.cuda.empty_cache()
+    log(f"[tensor_parallel] this process's cached card memory {held:.2f} "
+        f"GiB, {torch.cuda.memory_reserved() / 2 ** 30:.2f} GiB after "
+        f"freeing")
+    ranks = spawn_ranks(4, {"base": base, "runs": TP_OBJECT_RUNS,
+                            "steps": TP_STEPS}, 900, TP_WORKER)
+    ranks2 = spawn_ranks(2, {"base": base, "runs": TP_PAIR_RUNS,
+                             "steps": TP_STEPS}, 600, TP_WORKER)
+    launches = dict.fromkeys(TP_COUNTERS, 0)
+    must = {"transformer": ("dense_fwd", "dense_bwd"),
+            "transformer_f32": ("dense_fwd", "dense_bwd"),
+            "mamba3d_f32": ("dense_fwd", "dense_bwd", "scan_fwd",
+                            "scan_bwd"),
+            "ptv3_f32": ("binned_fwd", "binned_bwd")}
+    for r in ranks + ranks2:
+        if r["backend"] != "gloo":
+            raise AssertionError(f"rank {r['rank']}: {r['backend']}")
+        for label, run in r["runs"].items():
+            for k, v in run["launches"].items():
+                launches[k] += v
+            if not all(math.isfinite(x) for x in run["losses"]) or \
+                    any(run["nan_skipped"]) or \
+                    len(run["losses"]) != TP_STEPS:
+                raise AssertionError(f"rank {r['rank']} {label}: {run}")
+            if min(run["launches"][k] for k in must[label]) <= 0:
+                raise AssertionError(f"rank {r['rank']} {label}: a kernel "
+                                     f"of the path never launched: "
+                                     f"{run['launches']}")
+            g = run["grid"]
+            log(f"[tensor_parallel] rank {r['rank']} {label} "
+                f"({g['data']} x {g['model']}, data {g['data_index']}, "
+                f"model {g['model_index']}): losses {run['losses']}; step "
+                f"ms {[round(t, 2) for t in run['step_ms']]}; model-group "
+                f"all-reduces a step {run['model_allreduces']}, ms "
+                f"{[round(t, 2) for t in run['model_allreduce_ms']]}; "
+                f"data-group gradient all-reduce ms "
+                f"{[round(t, 2) for t in run['reduce_ms']]}; peak "
+                f"{run['peak_gib']:.2f} GiB; launches {run['launches']}"
+                + (f"; scan channels a launch {run['scan_widths']}"
+                   if run["scan_widths"] else "") + f" on {device_line}")
+        if "mamba3d_f32" in r["runs"] and \
+                r["runs"]["mamba3d_f32"]["scan_widths"] != [384]:
+            raise AssertionError("mamba3d 1 x 2: the scan ran on "
+                                 f"{r['runs']['mamba3d_f32']['scan_widths']}"
+                                 " channels, not 384")
+    for label, *_ in TP_OBJECT_RUNS + TP_PAIR_RUNS:
+        group = ranks if label.startswith("transformer") else ranks2
+        hold_tp_ranks(label, [r["runs"][label] for r in group])
+    ptv3_over = TP_PAIR_RUNS[1][2]
+    tol_ptv3 = tp_loss_floor("ptv3_pretraining", ptv3_over, device_line)
+    for label, config, over, _, _ in TP_OBJECT_RUNS[1:] + TP_PAIR_RUNS:
+        for k in counters.values():
+            k.launches = 0
+        one = dr.run_steps(load_config(config, overrides=over), 1, TP_STEPS,
+                           device="cuda", keep_params=True)
+        torch.cuda.synchronize()
+        for k, c in counters.items():
+            launches[k] += c.launches
+        log(f"[tensor_parallel] one process {label}: step ms "
+            f"{[round(t, 2) for t in one['step_ms']]}; peak "
+            f"{one['peak_gib']:.2f} GiB")
+        group = ranks if label.startswith("transformer") else ranks2
+        object_holds = (
+            (TOL_DIST_LOSS, TOL_TP_OBJECT_STEP2, TOL_DIST_LOSS),
+            (TOL_DIST_GRAD_NORM, TOL_TP_OBJECT_STEP2, TOL_DIST_GRAD_NORM),
+            TOL_DIST_PARAM)
+        tol_loss, tol_gn, tol_div = {
+            "ptv3_f32": (tol_ptv3, TOL_TP_PTV3_GRAD_NORM,
+                         TOL_TP_PTV3_PARAM)}.get(label, object_holds)
+        hold_tp_vs_one(
+            label, [r["runs"][label] for r in group], one, base,
+            float(load_config(config, overrides=over).opt.base_lr),
+            tol_loss, tol_gn, tol_div, device_line)
+        del one
+        torch.cuda.empty_cache()
+    log(f"[tensor_parallel] phase {time.perf_counter() - t_phase:.1f} s")
     return launches
 
 
@@ -3617,33 +3937,45 @@ def main():
     smi = nvidia_smi_line()
     log(f"[device] {name} count={count} nvidia-smi: {smi}")
 
-    build_kernels(["splat_dense", "splat_binned", "splat_stream",
-                   "selective_scan"])
-    dense = phase_kernels(device)
-    scan = phase_scan_kernels(device)
-    binned = phase_binned_kernels(device)
-    stream = phase_stream_kernels(device)
+    spent = {}       # seconds a phase: the 1200 s limit is the whole run's
+
+    def timed(fn, *args):
+        t = time.time()
+        out = fn(*args)
+        spent[fn.__name__] = round(time.time() - t, 1)
+        log(f"[timing] {fn.__name__} {spent[fn.__name__]} s")
+        return out
+
+    timed(build_kernels, ["splat_dense", "splat_binned", "splat_stream",
+                          "selective_scan"])
+    dense = timed(phase_kernels, device)
+    scan = timed(phase_scan_kernels, device)
+    binned = timed(phase_binned_kernels, device)
+    stream = timed(phase_stream_kernels, device)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
-        launches = phase_train(smi, tmp)
-        for k, v in phase_train_backbones(smi, tmp).items():
+        launches = timed(phase_train, smi, tmp)
+        for k, v in timed(phase_train_backbones, smi, tmp).items():
             launches[k] = launches.get(k, 0) + v
-        for k, v in phase_train_ptv3(smi, tmp).items():
+        for k, v in timed(phase_train_ptv3, smi, tmp).items():
             launches[k] = launches.get(k, 0) + v
-        phase_test_renders(smi, tmp)
-        for k, v in phase_warm_start_lpips_export(smi, tmp).items():
+        timed(phase_test_renders, smi, tmp)
+        for k, v in timed(phase_warm_start_lpips_export, smi, tmp).items():
             launches[k] += v
-        for k, v in phase_finetune(smi, tmp).items():
+        for k, v in timed(phase_finetune, smi, tmp).items():
             launches[k] += v
-        for k, v in phase_distributed(smi, tmp).items():
+        for k, v in timed(phase_distributed, smi, tmp).items():
             launches[k] += v
-        for k, v in phase_block(smi, tmp).items():
+        for k, v in timed(phase_tensor_parallel, smi, tmp).items():
             launches[k] += v
-    phase_parity()
-    phase_parity_backbones()
-    phase_parity_ptv3()
-    launches["stream_bwd"] = phase_eval_parity()
+        for k, v in timed(phase_block, smi, tmp).items():
+            launches[k] += v
+    timed(phase_parity)
+    timed(phase_parity_backbones)
+    timed(phase_parity_ptv3)
+    launches["stream_bwd"] = timed(phase_eval_parity)
 
     rows = kernel_rows(dense, binned, stream, scan, launches)
+    log(f"[timing] seconds a phase: {spent}")
     log(f"[done] {time.time() - t0:.1f} s")
     print(json.dumps({"kernels": rows}))
     print(smi)

@@ -227,9 +227,10 @@ def _free_port() -> int:
     return port
 
 
-def spawn(args: dict, world: int = 2, timeout: float = 300) -> None:
-    """Run WORKER in ``world`` processes of one gloo group; each must exit
-    0 within ``timeout`` seconds."""
+def spawn(args: dict, world: int = 2, timeout: float = 300,
+          program: str = WORKER) -> None:
+    """Run ``program`` (WORKER) in ``world`` processes of one gloo group;
+    each must exit 0 within ``timeout`` seconds."""
     port = _free_port()
     procs = []
     for rank in range(world):
@@ -240,7 +241,7 @@ def spawn(args: dict, world: int = 2, timeout: float = 300) -> None:
             "UNIPRE3D_PROCESS_ID": str(rank), "OMP_NUM_THREADS": "1",
             "PYTHONPATH": REPO + os.pathsep + env.get("PYTHONPATH", "")})
         procs.append(subprocess.Popen(
-            [sys.executable, "-c", WORKER, json.dumps(args)], env=env,
+            [sys.executable, "-c", program, json.dumps(args)], env=env,
             cwd=REPO, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
             text=True))
     outs = []
@@ -331,15 +332,17 @@ def test_single_process_fallbacks_and_raises(monkeypatch):
     assert not torch.distributed.is_initialized()
 
 
-def test_model_parallel_raises_naming_item_21():
-    with pytest.raises(NotImplementedError, match="item 21"):
-        parallel.make_mesh("cpu", model_parallel=2)
-    with pytest.raises(NotImplementedError, match="item 21"):
-        parallel.tp_matched_paths({})
-    with pytest.raises(NotImplementedError, match="item 21"):
-        tmesh.TP_RULES
-    with pytest.raises(NotImplementedError, match="item 21"):
-        parallel.replicate(None, None, require_tp_match=True)
+def test_model_parallel_3_raises_in_a_world_of_4(tmp_path_factory):
+    """A world that model_parallel does not divide raises (JAX's assert),
+    on every rank of the world of 4 that tests/test_torch_tensor_parallel.py
+    spawns once a run; one process is a world of 1, which 2 does not
+    divide either."""
+    from test_torch_tensor_parallel import tp_world_results
+    world = tp_world_results(tmp_path_factory)
+    assert all(bool(world[f"rank{r}"]["mp3_raises"]) for r in range(4))
+    with pytest.raises(ValueError, match="world of 1"):
+        tmesh.make_mesh("cpu", model_parallel=2)
+    assert tmesh.make_mesh("cpu", model_parallel=1) == torch.device("cpu")
 
 
 # --- loader shards -----------------------------------------------------------

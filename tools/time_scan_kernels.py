@@ -159,7 +159,7 @@ def main(argv=None):
             base = chip_smoke.scan_case(Bsz, L, D, si, dev)
             g = torch.randn(Bsz, L, D, device=dev,
                             generator=torch.Generator(dev).manual_seed(si))
-            cases = {"float32": base, "mixer": chip_smoke.mixer_layout(base)}
+            cases = {"float32": base, "mixer": chip_smoke.mixer_layout(base, D // 2)}
             refs = {}
             for kind, ins in cases.items():
                 leaves = [t.float().clone().requires_grad_(True) for t in ins]

@@ -23,9 +23,19 @@ parameter paths so that weights convert by rule
   ``nn.LayerNorm`` do.
 
 Under several processes (parallel/distributed.py), inside ``synced()``
-BatchNorm takes its statistics over the global batch (its sums all-reduced,
-with their gradient) and DropPath draws the global batch's per-sample mask
-and keeps this rank's rows, as the JAX step over a data-sharded batch does.
+BatchNorm takes its statistics over the global batch (its sums all-reduced
+over the data group, with their gradient) and DropPath draws the global
+batch's per-sample mask and keeps this rank's rows, as the JAX step over a
+data-sharded batch does.
+
+Tensor parallelism (parallel/mesh.py ``replicate`` on a grid of M model
+ranks): ``Attention`` keeps heads [m H/M, (m+1) H/M) of q, k and v
+(``qkv`` column parallel, split head-aligned) and a row-parallel ``proj``;
+``Mlp`` a column-parallel ``fc1`` (its bias split) and a row-parallel
+``fc2``. The replicated input goes through ``copy_to_model``, the
+row-parallel partial sums through ``reduce_from_model``, and the
+replicated bias of ``proj`` and ``fc2`` is added once after the sum
+(``row_parallel``), where GSPMD puts the same collectives in JAX.
 """
 
 from __future__ import annotations
@@ -37,6 +47,9 @@ from torch.nn import functional as F
 from unipre3d_tpu_torch.parallel.distributed import (global_rows,
                                                      sum_across_ranks,
                                                      sync_world)
+from unipre3d_tpu_torch.parallel.tensor import (copy_to_model,
+                                                reduce_from_model,
+                                                split_ranks)
 
 LN_EPS = 1e-6
 F32 = torch.float32
@@ -91,6 +104,18 @@ class RMSNorm(nn.Module):
         return (x * mul).to(self.dtype)
 
 
+def row_parallel(dense: Dense, x: torch.Tensor, tp: int) -> torch.Tensor:
+    """``dense(x)`` for a row-parallel ``dense`` split over ``tp`` model
+    ranks: the partial product summed over the model group, then the
+    replicated bias added once. ``dense(x)`` itself when ``tp`` is 1.
+    GSPMD stands in its place in JAX."""
+    if tp == 1:
+        return dense(x)
+    y = reduce_from_model(F.linear(x.to(dense.dtype),
+                                   dense.weight.to(dense.dtype)))
+    return y if dense.bias is None else y + dense.bias.to(dense.dtype)
+
+
 class Mlp(nn.Module):
     """Linear -> GELU (exact) -> Linear."""
 
@@ -101,12 +126,16 @@ class Mlp(nn.Module):
         self.fc2 = Dense(hidden, out, dtype=dtype)
 
     def forward(self, x):
-        return self.fc2(F.gelu(self.fc1(x)))
+        tp = split_ranks(self.fc1, 0)
+        if tp > 1:
+            x = copy_to_model(x)
+        return row_parallel(self.fc2, F.gelu(self.fc1(x)), tp)
 
 
 class Attention(nn.Module):
     """Multi-head self-attention, qkv without bias; the products in the
-    compute dtype, the softmax in float32, as the JAX version."""
+    compute dtype, the softmax in float32, as the JAX version. Split over
+    M model ranks, it computes its own ``num_heads / M`` heads."""
 
     def __init__(self, dim: int, num_heads: int, dtype: torch.dtype = F32):
         super().__init__()
@@ -117,12 +146,16 @@ class Attention(nn.Module):
     def forward(self, x):
         B, N, C = x.shape
         hd = C // self.num_heads
-        qkv = self.qkv(x).reshape(B, N, 3, self.num_heads, hd)
+        tp = split_ranks(self.qkv, 0)
+        H = self.num_heads // tp
+        if tp > 1:
+            x = copy_to_model(x)
+        qkv = self.qkv(x).reshape(B, N, 3, H, hd)
         q, k, v = qkv.unbind(2)                                   # [B,N,H,D]
         attn = torch.einsum("bnhd,bmhd->bhnm", q, k) * (hd ** -0.5)
         attn = torch.softmax(attn.float(), dim=-1).to(x.dtype)
-        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, C)
-        return self.proj(out)
+        out = torch.einsum("bhnm,bmhd->bnhd", attn, v).reshape(B, N, H * hd)
+        return row_parallel(self.proj, out, tp)
 
 
 def drop_path(x, rate: float, generator, training: bool):

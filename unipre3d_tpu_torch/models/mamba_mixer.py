@@ -15,6 +15,18 @@ keep the flax names (``conv_weight [K, D]``, ``conv_bias``, ``dt_bias``,
 ``A_log``, ``D``) and their flax initial values: A = log(1..N) per
 channel, dt_bias the inverse softplus of a log-uniform dt in [1e-3, 0.1]
 drawn from ``RandomState(0)``, D = 1.
+
+Tensor parallelism (parallel/mesh.py ``replicate`` on a grid of M model
+ranks): rank m keeps the channels [m d_inner/M, (m+1) d_inner/M) of both
+x and z (``in_proj`` column parallel, each half split), their per-channel
+parameters (``conv_weight``, ``conv_bias``, ``dt_proj``'s outputs,
+``dt_bias``, ``A_log``, ``D``) and ``x_proj``'s inputs, and scans its own
+channels. ``x_proj`` reads every channel, so its partial product goes
+through ``sum_model``, whose backward sums too: dt, B and C feed the
+rank's channels again. ``out_proj`` is row parallel (``reduce_from_model``);
+the input goes through ``copy_to_model``. JAX splits only the two
+projections and lets GSPMD compute the rest on whole channels; the sums
+are the same.
 """
 
 from __future__ import annotations
@@ -26,8 +38,10 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
-from unipre3d_tpu_torch.models.layers import F32, Dense
+from unipre3d_tpu_torch.models.layers import F32, Dense, row_parallel
 from unipre3d_tpu_torch.ops.scan import causal_conv1d, selective_scan
+from unipre3d_tpu_torch.parallel.tensor import (copy_to_model, split_ranks,
+                                                sum_model)
 
 
 def a_log_init(d_inner: int, d_state: int) -> torch.Tensor:
@@ -71,7 +85,10 @@ class SSMBranch(nn.Module):
     def forward(self, x, z):
         """x, z [B, L, d_inner] -> y [B, L, d_inner] float32 (gated)."""
         x = F.silu(causal_conv1d(x, self.conv_weight, self.conv_bias))
-        dt, B, C = torch.split(self.x_proj(x),
+        proj = self.x_proj(x)
+        if split_ranks(self.x_proj, 1) > 1:
+            proj = sum_model(proj)
+        dt, B, C = torch.split(proj,
                                [self.dt_rank, self.d_state, self.d_state], -1)
         dt = self.dt_proj(dt)
         A = -torch.exp(self.A_log.float())
@@ -96,8 +113,11 @@ class MambaMixer(nn.Module):
         self.out_proj = Dense(d_inner, d_model, bias=False, dtype=dtype)
 
     def forward(self, x):
+        tp = split_ranks(self.in_proj, 0)
+        if tp > 1:
+            x = copy_to_model(x)
         xs, z = self.in_proj(x).chunk(2, dim=-1)
         y = self.fwd(xs, z)
         if self.bimamba:
             y = y + self.bwd(xs.flip(1), z.flip(1)).flip(1)
-        return self.out_proj(y.to(self.dtype))
+        return row_parallel(self.out_proj, y.to(self.dtype), tp)

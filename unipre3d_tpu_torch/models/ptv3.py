@@ -49,7 +49,7 @@ from torch import nn
 from torch.nn import functional as F
 
 from unipre3d_tpu_torch.models.layers import (F32, Dense, LayerNorm,
-                                              drop_path)
+                                              drop_path, row_parallel)
 # serialize and PTv3Geometry live beside the other scene geometry (which
 # this module imports); they are PTv3's, and named here too
 from unipre3d_tpu_torch.models.scene_geometry import (  # noqa: F401
@@ -57,6 +57,7 @@ from unipre3d_tpu_torch.models.scene_geometry import (  # noqa: F401
 from unipre3d_tpu_torch.models.sparseunet import (MaskedBatchNorm, SubMConv,
                                                   point_fusion_merge)
 from unipre3d_tpu_torch.ops import sparse as sp
+from unipre3d_tpu_torch.parallel.tensor import copy_to_model, split_ranks
 
 MASKED_LOGIT = -1e9
 
@@ -102,7 +103,11 @@ def patch_attention(qkv: torch.Tensor, order: torch.Tensor,
 
 
 class SerializedAttention(nn.Module):
-    """qkv -> patch attention along one order -> proj."""
+    """qkv -> patch attention along one order -> proj. Split over M model
+    ranks (parallel/mesh.py ``replicate``) it computes its own
+    ``num_heads / M`` heads: ``qkv`` column parallel, split head-aligned
+    with its bias (JAX's ``attn/qkv/bias`` ``P("model")``), ``proj`` row
+    parallel, its bias replicated and added once after the sum."""
 
     def __init__(self, channels: int, num_heads: int, patch_size: int = 48,
                  dtype: torch.dtype = F32):
@@ -112,10 +117,13 @@ class SerializedAttention(nn.Module):
         self.proj = Dense(channels, channels, dtype=dtype)
 
     def forward(self, feat, ser: Serialized, mask, order_index: int):
+        tp = split_ranks(self.qkv, 0)
+        if tp > 1:
+            feat = copy_to_model(feat)
         out = patch_attention(self.qkv(feat), ser.order[:, order_index],
                               ser.inverse[:, order_index], mask,
-                              self.num_heads, self.patch_size)
-        return self.proj(out)
+                              self.num_heads // tp, self.patch_size)
+        return row_parallel(self.proj, out, tp)
 
 
 class PTv3Block(nn.Module):

@@ -4,7 +4,10 @@ Port of unipre3d_tpu/models/transformer.py (``PointTransformerEncoder``):
 FPS + ball-query groups, mini-PointNet group embedding, CLS token + MLP
 positional embedding re-added at every pre-LN block, and the object
 feature fusion after the last block. ``dtype`` is the compute dtype of
-every module (models/layers.py); the residual stream is in it.
+every module (models/layers.py); the residual stream is in it. On a
+``(data, model)`` grid each block's ``Attention`` and ``Mlp`` compute on
+their split (models/layers.py); the rest of the encoder is replicated on
+the ranks of a model group, which hold the same rows.
 """
 
 from __future__ import annotations

@@ -21,6 +21,17 @@ summation.
   feature spread) and DropPath draws the global batch's mask
   (``global_rows``); the train step and the CLI's validation enter it.
   Outside it, and with one process, no collective is called.
+* ``form_grid(M)`` folds the W ranks into JAX's 2-D ``(data, model)``
+  mesh (``make_mesh(model_parallel=M)``, ``devs.reshape(W // M, M)``):
+  rank ``d * M + m`` is data rank d of D = W // M and model rank m of M,
+  so a model group is M consecutive ranks. ``grid()`` is this rank's place
+  in it. Every data-parallel reduction above spans the rank's data group,
+  not the world: the ranks of a model group hold the same batch, so over
+  the world ``_SumAcrossRanks``' backward would add each cotangent M
+  times, ``global_rows`` would draw W·n rows, and the gradient mean would
+  average different shards together. ``model_all_reduce_`` sums over the
+  model group (parallel/tensor.py). With M = 1 (the default) the data
+  group is the world and nothing else changes.
 
 ``shard_host_batch`` has no counterpart: a process keeps its local batch
 (the loader's shard) on its own device, and the collectives above do what
@@ -40,6 +51,7 @@ from __future__ import annotations
 import contextlib
 import contextvars
 import os
+from dataclasses import dataclass
 from typing import Optional
 
 import torch
@@ -142,13 +154,93 @@ def _on_backend(t: torch.Tensor) -> torch.Tensor:
     return t if t.is_contiguous() else t.contiguous()
 
 
-def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
-    """Sum ``t`` over ranks, in place; returns ``t``."""
+@dataclass(frozen=True)
+class Grid:
+    """This rank's place in the ``(data, model)`` grid: rank =
+    ``data_index * model_count + model_index``. ``data_group`` and
+    ``model_group`` are its two process groups (None: the world, and no
+    model group, when ``model_count`` is 1)."""
+    data_index: int
+    data_count: int
+    model_index: int = 0
+    model_count: int = 1
+    data_group: object = None
+    model_group: object = None
+
+
+_GRID: Optional[Grid] = None
+# the grids formed in this process group, by M: their groups live as long
+# as the process group does, so each is formed once
+_GRIDS: dict = {}
+
+
+def form_grid(model_parallel: int = 1) -> Grid:
+    """Fold the world into D x M = W ranks with M = ``model_parallel``, as
+    JAX's ``make_mesh`` folds its devices (``M <= 1``: the 1-D data mesh).
+    Every rank creates every data group, then every model group, in the
+    same order (``dist.new_group`` is collective), once per M and process
+    group. A world that M does not divide raises, as JAX's assert does;
+    one process is a world of 1."""
+    global _GRID
+    M = int(model_parallel)
+    if M <= 1:
+        _GRID = None
+        return grid()
+    W, r = process_count(), process_index()
+    if W % M:
+        raise ValueError(f"a world of {W} process(es) does not fold into a "
+                         f"(data, model) grid with model_parallel={M}")
+    world = dist.group.WORLD
+    world_of, cached = _GRIDS.get(M, (None, None))
+    if world_of is not world:
+        D = W // M
+        data = [dist.new_group([d * M + m for d in range(D)])
+                for m in range(M)]
+        model = [dist.new_group([d * M + m for m in range(M)])
+                 for d in range(D)]
+        d, m = divmod(r, M)
+        cached = Grid(d, D, m, M, data[m], model[d])
+        _GRIDS[M] = (world, cached)
+    _GRID = cached
+    return _GRID
+
+
+def grid() -> Grid:
+    """This rank's grid: the one ``form_grid`` made, else the 1-D data
+    mesh over the world (JAX reads these off its ``Mesh``)."""
+    return _GRID or Grid(process_index(), process_count())
+
+
+def data_count() -> int:
+    """D: the ranks of this rank's data group (JAX's
+    ``mesh.shape["data"]``)."""
+    return grid().data_count
+
+
+def model_count() -> int:
+    """M: the ranks of this rank's model group (JAX's
+    ``mesh.shape["model"]``)."""
+    return grid().model_count
+
+
+def _all_reduce_(t: torch.Tensor, group) -> torch.Tensor:
     buf = _on_backend(t)
-    dist.all_reduce(buf)
+    dist.all_reduce(buf, group=group)
     if buf is not t:
         t.copy_(buf)
     return t
+
+
+def all_reduce_sum_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the ranks of this rank's data group (the world when
+    there is no model axis), in place; returns ``t``."""
+    return _all_reduce_(t, grid().data_group)
+
+
+def model_all_reduce_(t: torch.Tensor) -> torch.Tensor:
+    """Sum ``t`` over the ranks of this rank's model group, in place;
+    returns ``t``. No counterpart in JAX: GSPMD inserts these."""
+    return _all_reduce_(t, grid().model_group)
 
 
 def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
@@ -161,11 +253,12 @@ def broadcast_(t: torch.Tensor, src: int = 0) -> torch.Tensor:
 
 
 def all_reduce_mean(value: float, weight: float = 1.0) -> float:
-    """Weighted mean of a host scalar over processes (the reference's
-    ``dist.all_reduce(psnr); psnr /= world_size``, weighted): exact for
-    uneven shards, and a process with weight 0 takes part without moving
-    the mean (0.0 when every weight is 0). One process: ``value``."""
-    if process_count() == 1:
+    """Weighted mean of a host scalar over the data group's processes (the
+    reference's ``dist.all_reduce(psnr); psnr /= world_size``, weighted):
+    exact for uneven shards, and a process with weight 0 takes part
+    without moving the mean (0.0 when every weight is 0). One process:
+    ``value``."""
+    if data_count() == 1:
         return float(value)
     vw = all_reduce_sum_(torch.tensor([value * weight, weight],
                                       dtype=torch.float64))
@@ -185,15 +278,16 @@ def synced():
 
 
 def sync_world() -> int:
-    """The number of ranks a batch reduction spans here: the world size
-    inside ``synced()``, else 1."""
-    return process_count() if _SYNCED.get() else 1
+    """The number of ranks a batch reduction spans here: the data group's
+    size inside ``synced()``, else 1."""
+    return data_count() if _SYNCED.get() else 1
 
 
 class _SumAcrossRanks(torch.autograd.Function):
-    """All-reduce (sum) whose backward all-reduces the cotangent: every
-    rank's copy of the sum feeds its own loss, so the gradient of a rank's
-    addend is the sum of all ranks' cotangents."""
+    """All-reduce (sum) over the data group whose backward all-reduces the
+    cotangent: every data rank's copy of the sum feeds its own loss, so the
+    gradient of a rank's addend is the sum of all data ranks'
+    cotangents."""
 
     @staticmethod
     def forward(ctx, x):
@@ -213,12 +307,12 @@ def sum_across_ranks(x: torch.Tensor) -> torch.Tensor:
 def global_rows(draw, n: int) -> torch.Tensor:
     """Draw a per-sample quantity for the global batch and keep this
     rank's rows: ``draw(rows)`` makes ``rows`` samples; inside
-    ``synced()`` with W ranks of ``n`` local samples it makes W·n, from
-    the generator every rank shares, and this rank takes rows
-    [rank·n, (rank+1)·n), as JAX's draw over the data-sharded global batch
-    does."""
+    ``synced()`` with D data ranks of ``n`` local samples it makes D·n,
+    from the generator every rank shares, and data rank d takes rows
+    [d·n, (d+1)·n), as JAX's draw over the data-sharded global batch
+    does (the ranks of a model group take the same rows)."""
     w = sync_world()
     if w == 1:
         return draw(n)
-    r = process_index()
+    r = grid().data_index
     return draw(w * n)[r * n:(r + 1) * n]

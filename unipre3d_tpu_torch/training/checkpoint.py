@@ -39,11 +39,18 @@ from typing import Tuple
 import numpy as np
 import torch
 
+from unipre3d_tpu_torch.parallel.mesh import is_model_shard
 from unipre3d_tpu_torch.training.trainer import TrainState, split_frozen
 
 
 def save_checkpoint(path: str, model, state: TrainState,
                     best_psnr: float = 0.0) -> None:
+    """Write the state of ``model`` and ``state``. A model split over a
+    model group (parallel/mesh.py) holds parts of its tensors: it raises
+    (``mesh.gathered_state_dict`` joins them)."""
+    if any(is_model_shard(p) for p in model.parameters()):
+        raise ValueError("save_checkpoint: the model is split over a model "
+                         "group; gather it first (gathered_state_dict)")
     names = [n for n, _ in split_frozen(model)[0]]
     flat = {f"model/{k}": v for k, v in model.state_dict().items()}
     flat.update({f"ema/{k}": v for k, v in state.ema.items()})

@@ -43,6 +43,17 @@ reduced MSE (JAX's PSNR of the global batch, not a mean of the ranks'
 PSNRs), ``grad_norm`` is the reduced gradient's, and the binned route's
 counts are sums. ``DistributedDataParallel`` would not do: it reduces in
 hooks that ``torch.autograd.grad`` never runs.
+
+On a ``(data, model)`` grid (parallel/mesh.py) "ranks" above are the data
+group's: the ranks of a model group step on the same rows, each with its
+part of the split parameters (and of their EMA and Adam moments). One
+all-reduce over the model group then averages the replicated parameters'
+gradients (computed on every rank of the group, rounded otherwise by the
+card's float atomics), sums the squares of the split parts for the
+gradient norm (the replicated ones counted once) and agrees the
+finiteness, so the clip, the NaN skip and AdamW take the same decision
+and the replicated parameters stay the same on every rank, as JAX's
+global arrays are.
 """
 
 from __future__ import annotations
@@ -69,6 +80,8 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_binned import \
 from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
     rasterize_dense_batched
 from unipre3d_tpu_torch.parallel import distributed as dist_lib
+from unipre3d_tpu_torch.parallel.mesh import is_model_shard
+from unipre3d_tpu_torch.parallel.tensor import model_sum_
 from unipre3d_tpu_torch.utils import losses as loss_lib
 from unipre3d_tpu_torch.utils.lpips import lpips_fn
 
@@ -132,10 +145,13 @@ class AdamW:
         return self.base_lr * self.lr_gamma ** (self.count // self.step_lr)
 
     @torch.no_grad()
-    def update(self, grads: List[torch.Tensor], grad_norm: torch.Tensor) -> bool:
+    def update(self, grads: List[torch.Tensor], grad_norm: torch.Tensor,
+               finite=None) -> bool:
         """Apply one update; False (and no change) if a gradient is not
-        finite."""
-        finite = torch.stack([torch.isfinite(g).all() for g in grads]).all()
+        finite (``finite``, when given: the verdict over every rank's
+        part)."""
+        if finite is None:
+            finite = all_finite(grads)
         if not bool(finite):
             return False
         norm = float(grad_norm)
@@ -157,6 +173,11 @@ class AdamW:
         torch._foreach_add_(self.params, torch._foreach_mul(upd, -self.lr()))
         self.count += 1
         return True
+
+
+def all_finite(grads: List[torch.Tensor]) -> torch.Tensor:
+    """Whether every entry is finite (optax ``apply_if_finite``'s test)."""
+    return torch.stack([torch.isfinite(g).all() for g in grads]).all()
 
 
 class _Clock:
@@ -365,11 +386,40 @@ def predict(model: GaussianSplatPredictor, batch, n_in: int, generator=None,
 
 
 def all_reduce_grads(grads) -> List[torch.Tensor]:
-    """The gradients averaged over ranks, through one flat buffer."""
+    """The gradients averaged over the data group, through one flat
+    buffer."""
     flat = torch.cat([g.reshape(-1) for g in grads])
-    dist_lib.all_reduce_sum_(flat).div_(dist_lib.process_count())
+    dist_lib.all_reduce_sum_(flat).div_(dist_lib.data_count())
     return [f.view_as(g) for f, g in zip(flat.split([g.numel() for g in
                                                       grads]), grads)]
+
+
+def global_norm(grads, params):
+    """(gradients, optax.global_norm of the whole gradient, whether every
+    entry is finite). Split over a model group, one all-reduce over it
+    averages the replicated parameters' gradients (each rank computed them
+    redundantly, and the card's float atomics round them otherwise on
+    each: unsynced, the ranks' replicated parameters would drift apart),
+    sums the squares of the split parameters' parts and agrees the
+    finiteness; the replicated squares are counted once."""
+    if dist_lib.model_count() == 1:
+        return grads, torch.sqrt(sum((g * g).sum() for g in grads)), \
+            all_finite(grads)
+    M = dist_lib.model_count()
+    split = [is_model_shard(p) for p in params]
+    rep = [g for g, k in zip(grads, split) if not k]
+    own = [g for g, k in zip(grads, split) if k]
+    zero = grads[0].new_zeros(())
+    tail = torch.stack([sum(((g * g).sum() for g in own), zero),
+                        (~all_finite(own)).to(zero.dtype) if own else zero])
+    flat = model_sum_(torch.cat([g.reshape(-1) for g in rep] + [tail]))
+    sizes = [g.numel() for g in rep]
+    rep = [f.view_as(g).div_(M) for f, g in zip(
+        flat[:-2].split(sizes), rep)]
+    it = iter(rep)
+    grads = [g if k else next(it) for g, k in zip(grads, split)]
+    norm = torch.sqrt(sum((g * g).sum() for g in rep) + flat[-2])
+    return grads, norm, all_finite(rep) & (flat[-1] == 0)
 
 
 def _reduce_metrics(metrics: Dict, mse: torch.Tensor) -> Dict:
@@ -382,7 +432,7 @@ def _reduce_metrics(metrics: Dict, mse: torch.Tensor) -> Dict:
                         .detach().cpu() for k in means + sums]
                        + [mse.detach().double().cpu()])
     dist_lib.all_reduce_sum_(vals)
-    w = dist_lib.process_count()
+    w = dist_lib.data_count()
     out = dict(metrics)
     for i, k in enumerate(means):
         out[k] = vals[i] / w
@@ -424,7 +474,7 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
 
     def train_step(state: TrainState, batch) -> Dict[str, float]:
         render_stats = {}
-        world = dist_lib.process_count()
+        world = dist_lib.data_count()
         # the named ranges label a torch.profiler trace of the step
         # (tools/profile_torch_step.py); outside a profiler they cost a
         # few microseconds
@@ -458,8 +508,8 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
                     metrics, ((rendered.detach() - gt) ** 2).mean())
         with record_function("step/optimizer"):
             # optax.global_norm: sqrt of the sum of every squared entry
-            grad_norm = torch.sqrt(sum((g * g).sum() for g in grads))
-            applied = state.optimizer.update(list(grads), grad_norm)
+            grads, grad_norm, finite = global_norm(grads, params)
+            applied = state.optimizer.update(list(grads), grad_norm, finite)
             state.step += 1
             if use_ema:
                 with torch.no_grad():

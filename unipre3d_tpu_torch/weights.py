@@ -25,12 +25,22 @@ other ``weight`` a ``kernel`` (2-D transposed back to ``[in, out]``, 4-D
 to HWIO, 3-D sparse-conv kernels as they are); ``running_mean`` /
 ``running_var`` go to ``batch_stats``; the VAE's diffusers names go back
 to flax's.
+
+
+``shard_state_dict`` / ``gather_state_dict`` split a ``state_dict`` over M
+model ranks and join it back, bit for bit, by the tensor-parallel splits
+(``TP_RULES``: JAX's rules of unipre3d_tpu/parallel/mesh.py written
+against the port's names; ``TP_CHANNEL_RULES``: the Mamba mixers'
+per-channel parameters). A torch ``Linear.weight`` is ``[out, in]``, the
+transpose of flax's ``[in, out]`` kernel, so JAX's column split
+``P(None, "model")`` cuts the torch weight's dim 0 and its row split
+``P("model", None)`` dim 1.
 """
 
 from __future__ import annotations
 
 import re
-from typing import Dict, Iterator, Tuple
+from typing import Dict, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -130,3 +140,88 @@ def state_dict_to_jax(state_dict) -> Tuple[Dict, Dict]:
             node = node.setdefault(part, {})
         node[leaf] = np.ascontiguousarray(v)
     return params, stats
+
+
+# Tensor parallelism. A rule is (pattern, dim, blocks): the torch tensor's
+# dimension ``dim`` holds ``blocks`` equal blocks laid end to end, and
+# model rank m of M keeps the m-th of M equal parts of each block. JAX's
+# TP_RULES (unipre3d_tpu/parallel/mesh.py:65-74) cut the columns
+# contiguously, a layout GSPMD computes on whole; here each rank computes
+# on its part, so the qkv rows ([3][H][hd]) are cut head-aligned (rank m
+# takes heads [m H/M, (m+1) H/M) of each of q, k and v) and in_proj's rows
+# ([x | z]) by half, rank m taking the channels m of both x and z.
+TP_RULES: Tuple[Tuple[str, int, int], ...] = (
+    (r"attn\.qkv\.weight$", 0, 3),        # column parallel, by heads
+    (r"attn\.qkv\.bias$", 0, 3),
+    (r"attn\.proj\.weight$", 1, 1),       # row parallel
+    (r"mlp\.fc1\.weight$", 0, 1),
+    (r"mlp\.fc1\.bias$", 0, 1),
+    (r"mlp\.fc2\.weight$", 1, 1),
+    (r"mixer\.in_proj\.weight$", 0, 2),   # the d_inner channels of x and z
+    (r"mixer\.out_proj\.weight$", 1, 1),
+)
+# A mixer split by TP_RULES scans its own channels of d_inner: the
+# per-channel parameters go with them, and x_proj, which reads every
+# channel, is row parallel. JAX replicates these; GSPMD computes the same.
+TP_CHANNEL_RULES: Tuple[Tuple[str, int, int], ...] = (
+    (r"mixer\.(fwd|bwd)\.conv_weight$", 1, 1),        # [K, d_inner]
+    (r"mixer\.(fwd|bwd)\.(conv_bias|dt_bias|A_log|D)$", 0, 1),
+    (r"mixer\.(fwd|bwd)\.dt_proj\.weight$", 0, 1),    # [d_inner, dt_rank]
+    (r"mixer\.(fwd|bwd)\.x_proj\.weight$", 1, 1),     # [dt_rank + 2N, d_inner]
+)
+
+
+def tp_split(name: str, rules=TP_RULES + TP_CHANNEL_RULES
+             ) -> Optional[Tuple[int, int]]:
+    """(dim, blocks) of the first rule whose pattern ``name`` matches, or
+    None (replicated): JAX's ``_spec_for``."""
+    for pat, dim, blocks in rules:
+        if re.search(pat, name):
+            return dim, blocks
+    return None
+
+
+def shard_tensor(t: torch.Tensor, dim: int, blocks: int, m: int, M: int
+                 ) -> torch.Tensor:
+    """Model rank m's part of ``t`` (a new contiguous tensor); a dimension
+    that ``blocks`` x M does not divide raises. GSPMD's sharding stands in
+    its place in JAX."""
+    n = t.shape[dim]
+    if n % (blocks * M):
+        raise ValueError(f"dimension {dim} of a {tuple(t.shape)} tensor "
+                         f"({blocks} block(s)) does not split over {M} "
+                         f"model ranks")
+    part = t.unflatten(dim, (blocks, M, n // (blocks * M))).select(dim + 1, m)
+    return part.flatten(dim, dim + 1).clone(
+        memory_format=torch.contiguous_format)
+
+
+def gather_tensor(parts: Sequence[torch.Tensor], dim: int, blocks: int
+                  ) -> torch.Tensor:
+    """The inverse of ``shard_tensor`` over the parts of ranks 0..M-1
+    (JAX's global arrays need none)."""
+    k = parts[0].shape[dim] // blocks
+    return torch.stack([p.unflatten(dim, (blocks, k)) for p in parts],
+                       dim + 1).flatten(dim, dim + 2)
+
+
+def shard_state_dict(sd, m: int, M: int) -> Dict[str, torch.Tensor]:
+    """Model rank m's ``state_dict`` of M: every tensor a rule names cut to
+    its part, the others as they are (JAX: ``replicate``'s shardings)."""
+    out = {}
+    for k, v in sd.items():
+        split = tp_split(k)
+        out[k] = v if split is None else shard_tensor(v, *split, m, M)
+    return out
+
+
+def gather_state_dict(shards: Sequence[Dict[str, torch.Tensor]]
+                      ) -> Dict[str, torch.Tensor]:
+    """The whole ``state_dict`` from model ranks 0..M-1's
+    (``shard_state_dict``'s inverse, bit for bit)."""
+    out = {}
+    for k, v in shards[0].items():
+        split = tp_split(k)
+        out[k] = v if split is None else gather_tensor(
+            [s[k] for s in shards], *split)
+    return out
