@@ -46,6 +46,7 @@ import numpy as np
 import torch
 
 from unipre3d_tpu_torch.data.draws import batch_rng, example_draws
+from unipre3d_tpu_torch.telemetry import count, span
 
 
 def collate(examples) -> Dict[str, np.ndarray]:
@@ -60,14 +61,28 @@ def collate(examples) -> Dict[str, np.ndarray]:
 
 
 def batch_to(batch: Dict[str, np.ndarray], device) -> Dict[str, torch.Tensor]:
-    """Numpy batch -> tensors on ``device`` (float arrays as float32)."""
+    """Numpy batch -> tensors on ``device`` (float arrays as float32), in
+    the span ``data/batch_to``, counting the bytes moved as
+    ``h2d_bytes``."""
+    moved = []
+
     def conv(a):
         t = torch.as_tensor(np.asarray(a))
         if t.is_floating_point():
             t = t.float()
-        return t.to(device)
-    return {k: batch_to(v, device) if isinstance(v, dict) else conv(v)
-            for k, v in batch.items()}
+        moved.append(t.nbytes)
+        # a pageable copy: the host waits for it
+        with span("sync/batch_to"):
+            return t.to(device)
+
+    def walk(b):
+        return {k: walk(v) if isinstance(v, dict) else conv(v)
+                for k, v in b.items()}
+
+    with span("data/batch_to"):
+        out = walk(batch)
+        count("h2d_bytes", sum(moved))
+    return out
 
 
 class Loader:
@@ -184,7 +199,8 @@ class Loader:
         thread.start()
         try:
             while True:
-                item = q.get()
+                with span("data/wait"):
+                    item = q.get()
                 if isinstance(item, Exception):
                     raise item
                 yield item

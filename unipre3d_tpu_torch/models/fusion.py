@@ -14,6 +14,8 @@ from __future__ import annotations
 
 import torch
 
+from unipre3d_tpu_torch.telemetry import span
+
 
 def project_points_to_image(center: torch.Tensor, c2w: torch.Tensor,
                             intrinsic: torch.Tensor):
@@ -22,7 +24,9 @@ def project_points_to_image(center: torch.Tensor, c2w: torch.Tensor,
     B, N, _ = center.shape
     hom = torch.cat([center, torch.ones(B, N, 1, dtype=center.dtype,
                                         device=center.device)], dim=-1)
-    w2c = torch.linalg.inv(c2w.transpose(-1, -2))
+    # inv checks the matrices for singularity on the host
+    with span("sync/fusion_inv"):
+        w2c = torch.linalg.inv(c2w.transpose(-1, -2))
     cam_pts = torch.einsum("bij,bnj->bni", w2c, hom)
     z = cam_pts[..., 2]
     px = cam_pts[..., 0] * intrinsic[0, 0] / z + intrinsic[0, 2]

@@ -46,7 +46,6 @@ import numpy as np
 import torch
 from torch import nn
 from torch.nn import functional as F
-from torch.profiler import record_function
 
 from unipre3d_tpu_torch.models.layers import F32, Dense
 from unipre3d_tpu_torch.models.mamba3d import Mamba3DEncoder
@@ -57,6 +56,7 @@ from unipre3d_tpu_torch.models.scene_geometry import CONV_IMPLS
 from unipre3d_tpu_torch.models.sparseunet import SpUNet, SubMConvBlock
 from unipre3d_tpu_torch.models.transformer import PointTransformerEncoder
 from unipre3d_tpu_torch.models.vae import AutoencoderKL
+from unipre3d_tpu_torch.telemetry import mark, span
 from unipre3d_tpu_torch.utils.camera import intrinsics_from_fov
 
 # feature_dim/fusion_dim of the backbones the port has
@@ -301,7 +301,7 @@ class GaussianSplatPredictor(nn.Module):
                                        vae_features, generator)
         if self.use_fusion:
             B, V = image.shape[:2]
-            with record_function("predictor/frozen_vae"):
+            with span("predictor/frozen_vae"):
                 feats = self.raw_normalized_features(
                     self._flat_views(image),
                     self._flat_views(vae_features)).to(self.dtype)
@@ -309,34 +309,40 @@ class GaussianSplatPredictor(nn.Module):
                 # multi-view union: the backbone runs once per view
                 point_cloud = point_cloud.repeat_interleave(V, dim=0)
                 c2w = c2w.reshape(B * V, 1, *c2w.shape[2:])
-            out, center = self.point_network(
-                point_cloud, image_features=feats, c2w=c2w,
-                fusion_mlp=self.fusion_mlps, intrinsic=self.intrinsic,
-                image_proj=self.image_conv.proj_rows, generator=generator)
+            with span(f"predictor/{self.backbone_type}"):
+                out, center = self.point_network(
+                    point_cloud, image_features=feats, c2w=c2w,
+                    fusion_mlp=self.fusion_mlps, intrinsic=self.intrinsic,
+                    image_proj=self.image_conv.proj_rows,
+                    generator=generator)
         else:
             B, V = point_cloud.shape[0], 1
-            out, center = self.point_network(point_cloud, generator=generator)
-        d = self.activate(out, center)
+            with span(f"predictor/{self.backbone_type}"):
+                out, center = self.point_network(point_cloud,
+                                                 generator=generator)
+        d = self.activate(mark(out, self.backbone_type), center)
         if V > 1:
             d = {k: v.reshape(B, V * v.shape[1], *v.shape[2:])
                  for k, v in d.items()}
+        d["xyz"] = mark(d["xyz"], "activate")
         return d
 
     def _forward_scene(self, point_cloud, image, unprojected, geometry,
                        vae_features=None, generator=None):
         feats = None
         if self.use_fusion:
-            with record_function("predictor/frozen_vae"):
+            with span("predictor/frozen_vae"):
                 xn = self.raw_normalized_features(
                     self._flat_views(image), self._flat_views(vae_features))
-            feats = self.image_conv(xn)
-        with record_function(f"predictor/{self.backbone_type}"):
+            feats = mark(self.image_conv(xn), "image_conv")
+        with span(f"predictor/{self.backbone_type}"):
             out, coords, mask = self.point_network.forward_scene(
                 point_cloud, feats, unprojected,
                 self.fusion_mlps if self.use_fusion else None,
                 geometry=geometry, generator=generator)
-        d = self.activate(out, coords)
+        d = self.activate(mark(out, self.backbone_type), coords)
         d["mask"] = mask
+        d["xyz"] = mark(d["xyz"], "activate")
         return d
 
     def activate(self, out, center) -> Dict[str, torch.Tensor]:

@@ -58,6 +58,7 @@ from unipre3d_tpu_torch.models.sparseunet import (MaskedBatchNorm, SubMConv,
                                                   point_fusion_merge)
 from unipre3d_tpu_torch.ops import sparse as sp
 from unipre3d_tpu_torch.parallel.tensor import copy_to_model, split_ranks
+from unipre3d_tpu_torch.telemetry import span
 
 MASKED_LOGIT = -1e9
 
@@ -234,11 +235,13 @@ class PointTransformerV3(nn.Module):
 
     def build_geometry(self, data, unprojected, use_fusion: bool):
         """The batch's index structures (models/scene_geometry.py)."""
-        return build_ptv3_geometry(
-            data, unprojected, grid_size=self.grid_size,
-            pixel_capacity=self.pixel_capacity, orders=self.orders,
-            n_stages=self.n_stages, patch_size=self.patch_size,
-            pool_capacity_div=self.pool_capacity_div, use_fusion=use_fusion)
+        with span("geometry/build"):
+            return build_ptv3_geometry(
+                data, unprojected, grid_size=self.grid_size,
+                pixel_capacity=self.pixel_capacity, orders=self.orders,
+                n_stages=self.n_stages, patch_size=self.patch_size,
+                pool_capacity_div=self.pool_capacity_div,
+                use_fusion=use_fusion)
 
     def _shuffled(self, sers, generator, device):
         """The stages' serializations with the order axis flipped for the

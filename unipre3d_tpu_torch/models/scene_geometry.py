@@ -26,6 +26,7 @@ import torch
 
 from unipre3d_tpu_torch.ops import sparse as sp
 from unipre3d_tpu_torch.ops.serialization import encode
+from unipre3d_tpu_torch.telemetry import span
 
 
 class SpUNetGeometry(NamedTuple):
@@ -101,7 +102,8 @@ def _fine_geometry_one(grid_coord, mask, coord, min_coord, unproj, *,
         # cloud's extent, voxelize at the shared min_coord, concat
         pix_world = unproj[..., :3].reshape(-1, 3)
         pix_valid = unproj[..., 3].reshape(-1) > 0
-        big = torch.tensor(1e9, device=dev)
+        with span("sync/fusion_bbox"):
+            big = torch.tensor(1e9, device=dev)
         lo = torch.where(mask0[:, None], world_c, big).amin(0)
         hi = torch.where(mask0[:, None], world_c, -big).amax(0)
         pix_valid = pix_valid & ((pix_world >= lo) & (pix_world <= hi)).all(-1)

@@ -38,6 +38,7 @@ from unipre3d_tpu_torch.models.scene_geometry import (CONV_IMPLS,
                                                       build_spunet_geometry)
 from unipre3d_tpu_torch.ops import sparse as sp
 from unipre3d_tpu_torch.parallel.distributed import sum_across_ranks
+from unipre3d_tpu_torch.telemetry import span
 
 
 class MaskedBatchNorm(nn.Module):
@@ -269,12 +270,13 @@ class SpUNet(nn.Module):
 
     def build_geometry(self, data, unprojected, use_fusion: bool):
         """The batch's index structures (models/scene_geometry.py)."""
-        return build_spunet_geometry(
-            data, unprojected, grid_size=self.grid_size,
-            pixel_capacity=self.pixel_capacity,
-            level_divs=self.level_capacity_div, n_stages=self.n_stages,
-            use_fusion=use_fusion, conv_impl=self.conv_impl,
-            block_size=self.block_size, block_div=self.block_div)
+        with span("geometry/build"):
+            return build_spunet_geometry(
+                data, unprojected, grid_size=self.grid_size,
+                pixel_capacity=self.pixel_capacity,
+                level_divs=self.level_capacity_div, n_stages=self.n_stages,
+                use_fusion=use_fusion, conv_impl=self.conv_impl,
+                block_size=self.block_size, block_div=self.block_div)
 
     def forward_point_fusion(self, data, image_features=None,
                              unprojected=None, fusion_mlp=None,

@@ -24,7 +24,8 @@ FPS is a plain loop of tensor ops over the samples.
 from __future__ import annotations
 
 import torch
-from torch.profiler import record_function
+
+from unipre3d_tpu_torch.telemetry import span
 
 
 def square_distance(src: torch.Tensor, dst: torch.Tensor) -> torch.Tensor:
@@ -38,9 +39,7 @@ def furthest_point_sample(xyz: torch.Tensor, npoint: int) -> torch.Tensor:
     """Iterative farthest point sampling: xyz [B, N, C] (any C) ->
     [B, npoint] int64 indices; the first index is always 0."""
     B, N, C = xyz.shape
-    # the named range labels a torch.profiler trace of the step
-    # (tools/profile_torch_step.py)
-    with record_function("point_ops/fps"):
+    with span("point_ops/fps"):
         xyz = xyz.float()
         sq_norm = (xyz * xyz).sum(-1)                               # [B, N]
         min_dist = torch.full((B, N), 1e10, device=xyz.device)

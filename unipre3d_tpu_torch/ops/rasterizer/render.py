@@ -40,6 +40,7 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_binned import (
     MAX_TILE_PIXELS as BINNED_TILE_PIXELS, rasterize_projected_binned)
 from unipre3d_tpu_torch.ops.rasterizer.splat_stream import (
     rasterize_projected_stream, tile_origins, tile_overlap)
+from unipre3d_tpu_torch.telemetry import span
 from unipre3d_tpu_torch.utils.camera import focal2fov
 
 IMPLS = ("xla", "pallas", "pallas_binned")
@@ -198,7 +199,8 @@ def rasterize_projected(pg: ProjectedGaussians, bg_color, img_h: int,
             rgb, log_t = checkpoint(_chunk_step, *args, use_reentrant=False)
         else:
             rgb, log_t = _chunk_step(*args)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
+    with span("sync/render_bg"):
+        bg = torch.as_tensor(bg_color, dtype=torch.float32, device=dev)
     tiles = rgb + torch.exp(log_t)[..., None] * bg
     img = tiles.reshape(R, img_h // tile_h, img_w // tile_w, tile_h, tile_w, 3)
     img = img.permute(0, 5, 1, 3, 2, 4).reshape(R, 3, img_h, img_w)

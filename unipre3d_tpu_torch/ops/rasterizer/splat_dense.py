@@ -29,6 +29,7 @@ import torch
 from unipre3d_tpu_torch import kernels
 from unipre3d_tpu_torch.ops.rasterizer.pack import (
     ALPHA_MAX, ALPHA_MIN, LOG_T_EPS, ROWS, pack)
+from unipre3d_tpu_torch.telemetry import span
 
 CHUNK = 512   # table columns composited per chunk (the T carry boundary)
 POWER_SKIP = 1e-4
@@ -307,7 +308,8 @@ def rasterize_dense_batched(mean2d, conic, color, opacity, depth, valid,
     axis R (= B*V): mean2d [R,N,2], conic [R,N,3], color [R,N,3],
     opacity/depth/valid [R,N] -> images [R, 3, H, W]."""
     data = sorted_table(mean2d, conic, color, opacity, depth, valid)
-    bg = torch.as_tensor(bg_color, dtype=torch.float32,
-                         device=data.device).reshape(3)
+    with span("sync/splat_bg"):
+        bg = torch.as_tensor(bg_color, dtype=torch.float32,
+                             device=data.device).reshape(3)
     out = DenseSplat.apply(data, bg, img_h, img_w)
     return out.reshape(-1, 3, img_h, img_w)

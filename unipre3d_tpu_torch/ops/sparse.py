@@ -37,6 +37,8 @@ import numpy as np
 import torch
 from torch.nn import functional as F
 
+from unipre3d_tpu_torch.telemetry import span
+
 CODE_BITS = 10          # per-axis bits; grid coords must be < 1024
 INVALID_CODE = 0xFFFFFFFF
 
@@ -108,8 +110,9 @@ def find_neighbors(sv: SparseVoxels, offsets: np.ndarray) -> torch.Tensor:
     (``_find_neighbors_cubic``), which this one lookup covers."""
     M = sv.coords.shape[0]
     codes = pack_code(sv.coords, sv.mask)
-    offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int64,
-                           device=sv.coords.device)
+    with span("sync/neighbor_offsets"):
+        offs = torch.as_tensor(np.asarray(offsets), dtype=torch.int64,
+                               device=sv.coords.device)
     tgt_coords = sv.coords[:, None, :].long() + offs[None, :, :]   # [M, K, 3]
     in_range = ((tgt_coords >= 0) & (tgt_coords < (1 << CODE_BITS))).all(-1)
     tgt_mask = sv.mask[:, None] & in_range
@@ -335,9 +338,11 @@ def downsample_structure(coords: torch.Tensor, mask: torch.Tensor,
                       torch.full_like(seg, capacity_out))
     rep = first & (seg < capacity_out)
     out_mask = torch.zeros(capacity_out, dtype=torch.bool, device=dev)
-    out_mask[seg[rep]] = True
     out_coords = torch.zeros(capacity_out, 3, dtype=coords.dtype, device=dev)
-    out_coords[seg[rep]] = parent_s[rep]
+    # boolean indexing sizes its result on the host
+    with span("sync/downsample"):
+        out_mask[seg[rep]] = True
+        out_coords[seg[rep]] = parent_s[rep]
 
     parent_idx = torch.empty(M, dtype=torch.long, device=dev)
     parent_idx[order] = torch.where(seg < capacity_out, seg,
@@ -419,9 +424,11 @@ def voxelize(points: torch.Tensor, feats: torch.Tensor, mask: torch.Tensor,
     first = _first_of_runs(code_s, code_s != INVALID_CODE)
     seg = torch.cumsum(first.long(), 0) - 1
     keep = first & (seg < capacity)
-    dst, src = seg[keep], order[keep]
     out_mask = torch.zeros(capacity, dtype=torch.bool, device=dev)
-    out_mask[dst] = True
+    # boolean indexing sizes its result on the host; True comes from it
+    with span("sync/voxelize"):
+        dst, src = seg[keep], order[keep]
+        out_mask[dst] = True
     out_coords = torch.zeros(capacity, 3, dtype=torch.int32, device=dev)
     out_coords[dst] = g[src]
     out_feats = feats.new_zeros(capacity, feats.shape[-1])

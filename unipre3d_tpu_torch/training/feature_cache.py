@@ -49,6 +49,7 @@ import numpy as np
 import torch
 
 from unipre3d_tpu_torch import resolve_device
+from unipre3d_tpu_torch.telemetry import span
 
 
 def _image_key(img: np.ndarray) -> bytes:
@@ -104,8 +105,9 @@ class DeviceVAECache:
         gather and transfer, before their slots are overwritten."""
         if not pairs or not self.host_capacity:
             return
-        idx = torch.tensor([s for _, s in pairs], device=self.device)
-        feats = self.buf[idx].cpu()
+        with span("cache/spill"):
+            idx = torch.tensor([s for _, s in pairs], device=self.device)
+            feats = self.buf[idx].cpu()
         for (key, _), feat in zip(pairs, feats):
             self.host[key] = feat
             self.host.move_to_end(key)
@@ -113,18 +115,27 @@ class DeviceVAECache:
             self.host.popitem(last=False)
 
     def _insert(self, slot_list: List[int], feats: torch.Tensor) -> None:
-        idx = torch.tensor(slot_list, device=self.device)
+        with span("sync/cache_insert"):
+            idx = torch.tensor(slot_list, device=self.device)
         self.buf[idx] = feats.to(self.device, self.buf.dtype)
 
     def attach(self, batch: Dict[str, np.ndarray], n_in: int
                ) -> torch.Tensor:
         """``vae_features`` [B, n_in, channels, H, W] on the device for the
         host (numpy) batch's conditioning images ``gt_images[:, :n_in]``,
-        updating the cache."""
+        updating the cache. Under a profiler its parts are the spans
+        ``cache/attach`` > ``cache/hash``, ``cache/spill``,
+        ``cache/upload``, ``cache/vae`` (the true misses' images to the
+        device and the extractor over them), ``cache/gather``."""
+        with span("cache/attach"):
+            return self._attach(batch, n_in)
+
+    def _attach(self, batch, n_in):
         images = np.asarray(batch["gt_images"][:, :n_in])
         B, V = images.shape[:2]
         flat = images.reshape(B * V, *images.shape[2:])
-        keys = [_image_key(flat[i]) for i in range(B * V)]
+        with span("cache/hash"):
+            keys = [_image_key(flat[i]) for i in range(B * V)]
         slot_of = [self._slot_for(k) for k in keys]
 
         miss_idx = [i for i, s in enumerate(slot_of) if s is None]
@@ -154,18 +165,25 @@ class DeviceVAECache:
                     spills.append((evicted, slot))
             self._spill_to_host(spills)
             if upload_idx:
-                self._insert([slot_of[i] for i in upload_idx],
-                             torch.stack(upload_feats))
+                with span("cache/upload"):
+                    self._insert([slot_of[i] for i in upload_idx],
+                                 torch.stack(upload_feats))
             if compute_idx:
-                imgs = torch.as_tensor(flat[compute_idx]).to(self.device)
-                self._insert([slot_of[i] for i in compute_idx],
-                             self.feature_fn(imgs))
+                with span("cache/vae"):
+                    with span("sync/cache_images"):
+                        imgs = torch.as_tensor(flat[compute_idx]).to(
+                            self.device)
+                    self._insert([slot_of[i] for i in compute_idx],
+                                 self.feature_fn(imgs))
             # duplicate keys within the batch take the first one's slot
             for i in miss_idx:
                 if slot_of[i] is None:
                     slot_of[i] = self.slots[keys[i]]
         self.hits += len(keys) - len(miss_idx)
-        out = self.buf[torch.tensor(slot_of, device=self.device)]
+        with span("cache/gather"):
+            with span("sync/cache_gather"):
+                idx = torch.tensor(slot_of, device=self.device)
+            out = self.buf[idx]
         return out.reshape(B, V, *self.shape)
 
     @property

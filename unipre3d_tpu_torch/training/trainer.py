@@ -65,7 +65,6 @@ from typing import Dict, List, Tuple
 
 import torch
 from torch import nn
-from torch.profiler import record_function
 
 from unipre3d_tpu_torch import resolve_device
 from unipre3d_tpu_torch.models.gaussian_predictor import (
@@ -82,6 +81,7 @@ from unipre3d_tpu_torch.ops.rasterizer.splat_dense import \
 from unipre3d_tpu_torch.parallel import distributed as dist_lib
 from unipre3d_tpu_torch.parallel.mesh import is_model_shard
 from unipre3d_tpu_torch.parallel.tensor import model_sum_
+from unipre3d_tpu_torch.telemetry import mark, span
 from unipre3d_tpu_torch.utils import losses as loss_lib
 from unipre3d_tpu_torch.utils.lpips import lpips_fn
 
@@ -152,9 +152,11 @@ class AdamW:
         part)."""
         if finite is None:
             finite = all_finite(grads)
-        if not bool(finite):
-            return False
-        norm = float(grad_norm)
+        # the host waits here for the backward and the norm to drain
+        with span("sync/optimizer"):
+            if not bool(finite):
+                return False
+            norm = float(grad_norm)
         if norm >= self.max_norm:
             grads = torch._foreach_mul(torch._foreach_div(grads, norm),
                                        self.max_norm)
@@ -475,44 +477,47 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
     def train_step(state: TrainState, batch) -> Dict[str, float]:
         render_stats = {}
         world = dist_lib.data_count()
-        # the named ranges label a torch.profiler trace of the step
-        # (tools/profile_torch_step.py); outside a profiler they cost a
-        # few microseconds
+        # the spans and backward marks (telemetry.py) label a profiler's
+        # trace of the step; without one they cost a check each
         model.train()
         with dist_lib.synced():
-            with record_function("step/forward"):
+            with span("step/forward"):
                 gaussians = predict(model, batch, n_in, state.generator)
-            with record_function("step/render"):
+            with span("step/render"):
                 rendered = render_supervision_views(gaussians, batch, cfg,
                                                     bg_color, render_stats)
                 gt = batch["gt_images"][:, n_in:]
                 loss, metrics = compute_loss(rendered, gt, cfg, bg_color)
+                loss = mark(loss, "render")
             if lpips is not None:
-                with record_function("step/lpips"):
+                with span("step/lpips"):
                     if state.step > start_lpips_after:
                         lp = lpips_fn(lpips, rendered.flatten(0, 1) * 2 - 1,
                                       gt.flatten(0, 1) * 2 - 1).mean()
                     else:
                         lp = torch.zeros((), device=loss.device)
-                    loss = loss + lambda_lpips * lp
+                    loss = mark(loss + lambda_lpips * lp, "lpips")
                     metrics.update(lpips=lp, loss=loss)
-            with record_function("step/backward"):
+            with span("step/backward"):
                 grads = torch.autograd.grad(loss, params)
         metrics.update(render_stats)
         if world > 1:
-            with record_function("step/reduce"):
+            with span("step/reduce"):
                 t0 = _Clock(loss.device)
                 grads = all_reduce_grads(grads)
                 reduce_clock = t0.stop()
                 metrics = _reduce_metrics(
                     metrics, ((rendered.detach() - gt) ** 2).mean())
-        with record_function("step/optimizer"):
-            # optax.global_norm: sqrt of the sum of every squared entry
-            grads, grad_norm, finite = global_norm(grads, params)
-            applied = state.optimizer.update(list(grads), grad_norm, finite)
+        with span("step/optimizer"):
+            with span("optimizer/norm"):
+                # optax.global_norm: sqrt of the sum of every squared entry
+                grads, grad_norm, finite = global_norm(grads, params)
+            with span("optimizer/adamw"):
+                applied = state.optimizer.update(list(grads), grad_norm,
+                                                 finite)
             state.step += 1
             if use_ema:
-                with torch.no_grad():
+                with span("optimizer/ema"), torch.no_grad():
                     if state.step <= ema_after:
                         for n, p in zip(names, params):
                             state.ema[n].copy_(p)
@@ -520,8 +525,9 @@ def make_train_step(cfg, model: GaussianSplatPredictor, lpips=None):
                         for n, p in zip(names, params):
                             state.ema[n].mul_(ema_beta).add_(
                                 p * (1.0 - ema_beta))
-        metrics = {k: float(v.detach()) for k, v in metrics.items()}
-        metrics["grad_norm"] = float(grad_norm)
+        with span("sync/metrics"):
+            metrics = {k: float(v.detach()) for k, v in metrics.items()}
+            metrics["grad_norm"] = float(grad_norm)
         metrics["nan_skipped"] = float(not applied)
         if world > 1:
             metrics["reduce_ms"] = reduce_clock.ms()

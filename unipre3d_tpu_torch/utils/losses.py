@@ -9,6 +9,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from unipre3d_tpu_torch.telemetry import span
+
 
 def l1_loss(pred: torch.Tensor, gt: torch.Tensor) -> torch.Tensor:
     return (pred - gt).abs().mean()
@@ -26,8 +28,9 @@ def focal_l2_loss(pred: torch.Tensor, gt: torch.Tensor, bg_color,
 
     pred/gt: [B, 3, H, W]; bg_color: length-3.
     """
-    bg = torch.as_tensor(bg_color, dtype=gt.dtype,
-                         device=gt.device).reshape(1, 3, 1, 1)
+    with span("sync/loss_bg"):
+        bg = torch.as_tensor(bg_color, dtype=gt.dtype,
+                             device=gt.device).reshape(1, 3, 1, 1)
     base = (pred - gt) ** 2
     is_bg = ((gt - bg).abs() <= 1e-6).all(dim=1, keepdim=True)
     normed_non_bg = 2.0 * non_bg_rate / (bg_rate + non_bg_rate)
