@@ -33,6 +33,7 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _libs: dict = {}
+ALL: list = []        # every CudaKernel made
 
 
 def _nvcc() -> str:
@@ -96,7 +97,10 @@ def build_log(name: str) -> str:
 
 class CudaKernel:
     """One C entry point of a kernel library, with its launch count (a
-    plain int, incremented at each launch and nowhere else). Arguments:
+    plain int, incremented at each launch; a CUDA graph's capture, which
+    records launches and makes none, takes its own back off, and each
+    replay adds them: models/backbone_graph.py). Every instance is in
+    ``ALL``. Arguments:
     ``n_ptr`` pointers, then ``n_int`` ints, then the stream (appended
     here); the entry point returns ``cudaGetLastError()`` after its launch
     and a non-zero code raises."""
@@ -107,6 +111,7 @@ class CudaKernel:
                          + [ctypes.c_void_p])
         self.launches = 0
         self._fn = None
+        ALL.append(self)
 
     def __call__(self, *args):
         import torch

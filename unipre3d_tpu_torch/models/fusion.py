@@ -14,8 +14,6 @@ from __future__ import annotations
 
 import torch
 
-from unipre3d_tpu_torch.telemetry import span
-
 
 def project_points_to_image(center: torch.Tensor, c2w: torch.Tensor,
                             intrinsic: torch.Tensor):
@@ -24,9 +22,9 @@ def project_points_to_image(center: torch.Tensor, c2w: torch.Tensor,
     B, N, _ = center.shape
     hom = torch.cat([center, torch.ones(B, N, 1, dtype=center.dtype,
                                         device=center.device)], dim=-1)
-    # inv checks the matrices for singularity on the host
-    with span("sync/fusion_inv"):
-        w2c = torch.linalg.inv(c2w.transpose(-1, -2))
+    # inv_ex leaves out inv's singularity check, which waits on the host
+    # (JAX's inv checks nothing either)
+    w2c = torch.linalg.inv_ex(c2w.transpose(-1, -2)).inverse
     cam_pts = torch.einsum("bij,bnj->bni", w2c, hom)
     z = cam_pts[..., 2]
     px = cam_pts[..., 0] * intrinsic[0, 0] / z + intrinsic[0, 2]

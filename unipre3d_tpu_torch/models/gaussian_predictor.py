@@ -33,6 +33,10 @@ affine to the float32 map, as the JAX package does
 (gaussian_predictor.py:258-313). ``activate`` casts the 23 channels to
 float32, so the gaussians, the renderer and every kernel stay float32.
 
+At object level the encoder's call (not the Gaussian head) goes through
+``EncoderGraphs`` (models/backbone_graph.py), which replays it as CUDA
+graphs in a one-device training step and runs it eagerly otherwise.
+
 The JAX package reads no ``backbone_overrides`` for PointMLP, Mamba3D and
 PCM and builds them at full width; the port raises if it is given any for
 them rather than ignoring them.
@@ -47,6 +51,7 @@ import torch
 from torch import nn
 from torch.nn import functional as F
 
+from unipre3d_tpu_torch.models.backbone_graph import EncoderGraphs
 from unipre3d_tpu_torch.models.layers import F32, Dense
 from unipre3d_tpu_torch.models.mamba3d import Mamba3DEncoder
 from unipre3d_tpu_torch.models.pcm import PointMambaSeg
@@ -261,6 +266,7 @@ class GaussianSplatPredictor(nn.Module):
                                        "block_size", 4))
         self.register_buffer("intrinsic", torch.from_numpy(np.asarray(
             intrinsics_from_fov(fov, training_resolution))), persistent=False)
+        self.encoder_graphs = EncoderGraphs()
 
     def extract_vae_features(self, image):
         """The frozen VAE's raw ``decoder_block_3`` map, no gradient, in
@@ -299,6 +305,7 @@ class GaussianSplatPredictor(nn.Module):
             return self._forward_scene(point_cloud, image,
                                        unprojected_coords, geometry,
                                        vae_features, generator)
+        fused, extra = {}, ()
         if self.use_fusion:
             B, V = image.shape[:2]
             with span("predictor/frozen_vae"):
@@ -309,17 +316,20 @@ class GaussianSplatPredictor(nn.Module):
                 # multi-view union: the backbone runs once per view
                 point_cloud = point_cloud.repeat_interleave(V, dim=0)
                 c2w = c2w.reshape(B * V, 1, *c2w.shape[2:])
-            with span(f"predictor/{self.backbone_type}"):
-                out, center = self.point_network(
-                    point_cloud, image_features=feats, c2w=c2w,
-                    fusion_mlp=self.fusion_mlps, intrinsic=self.intrinsic,
-                    image_proj=self.image_conv.proj_rows,
-                    generator=generator)
+            fused = dict(image_features=feats, c2w=c2w,
+                         fusion_mlp=self.fusion_mlps,
+                         intrinsic=self.intrinsic,
+                         image_proj=self.image_conv.proj_rows)
+            extra = (self.fusion_mlps, self.image_conv)
         else:
             B, V = point_cloud.shape[0], 1
-            with span(f"predictor/{self.backbone_type}"):
-                out, center = self.point_network(point_cloud,
-                                                 generator=generator)
+        with span(f"predictor/{self.backbone_type}"):
+            # the encoder replays as CUDA graphs where it can
+            # (models/backbone_graph.py), the head runs eagerly
+            tokens, center = self.encoder_graphs(
+                self.point_network.encoder, extra, point_cloud, generator,
+                **fused)
+            out = self.point_network.final(tokens)
         d = self.activate(mark(out, self.backbone_type), center)
         if V > 1:
             d = {k: v.reshape(B, V * v.shape[1], *v.shape[2:])

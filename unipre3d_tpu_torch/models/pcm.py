@@ -58,8 +58,10 @@ def serialize_reorder(p: torch.Tensor, arrays, order: str,
     voxelized positions: p [B, N, 3], arrays a list of [B, N, C] (entries
     may be None) -> (p sorted, [arrays sorted])."""
     # a tensor divisor: a Python float divides as a reciprocal product on
-    # CUDA and moves points across voxel boundaries
-    g = torch.floor(p / p.new_tensor(grid_size)).int()
+    # CUDA and moves points across voxel boundaries; made by a fill on the
+    # device, not copied from the host, which would wait for the copy
+    g = torch.floor(p / torch.full((), grid_size, dtype=p.dtype,
+                                   device=p.device)).int()
     g = g - g.amin(1, keepdim=True)
     g = g.clamp(0, (1 << SER_DEPTH) - 1)
     code = encode(g, order=order, depth=SER_DEPTH)

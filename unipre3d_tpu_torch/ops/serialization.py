@@ -31,7 +31,13 @@ _PERMS = {
     "xyz": (0, 1, 2), "xzy": (0, 2, 1), "yxz": (1, 0, 2),
     "yzx": (1, 2, 0), "zxy": (2, 0, 1), "zyx": (2, 1, 0),
 }
-_TRANS = [1, 0, 2]
+
+
+def _swap_xy(grid_coord: torch.Tensor) -> torch.Tensor:
+    """[..., (y, x, z)] of [..., (x, y, z)], by slices on the device (an
+    index list would be copied from the host, which waits for the copy)."""
+    return torch.cat([grid_coord[..., 1:2], grid_coord[..., :1],
+                      grid_coord[..., 2:]], -1)
 
 
 def _check_depth(depth: int) -> None:
@@ -140,11 +146,11 @@ def encode(grid_coord: torch.Tensor, order: str = "z",
     if order == "z":
         return z_order_encode(grid_coord, depth)
     if order == "z-trans":
-        return z_order_encode(grid_coord[..., _TRANS], depth)
+        return z_order_encode(_swap_xy(grid_coord), depth)
     if order == "hilbert":
         return hilbert_encode(grid_coord, depth)
     if order == "hilbert-trans":
-        return hilbert_encode(grid_coord[..., _TRANS], depth)
+        return hilbert_encode(_swap_xy(grid_coord), depth)
     if order in _PERMS:
         p = _PERMS[order]
         g = grid_coord.long()

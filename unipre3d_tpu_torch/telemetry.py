@@ -27,9 +27,12 @@ one check per call.
 Span names: ``step/*`` (the train step's phases), ``predictor/*``,
 ``backward/*``, ``optimizer/*``, ``sync/*`` (where the host waits for the
 device), ``cache/*`` (the feature cache), ``geometry/build``, ``data/*``,
-``point_ops/fps``. Counter: ``h2d_bytes`` (the bytes ``batch_to`` moves).
-Only the thread that drives the step opens ranges; the loader's reading
-thread opens none, as its ranges would overlap that thread's in time.
+``point_ops/fps``, ``graph/capture`` and ``graph/replay`` (the object
+encoder's CUDA graphs, models/backbone_graph.py; a replayed encoder opens
+none of the ranges inside it). Counter: ``h2d_bytes`` (the bytes
+``batch_to`` moves). Only the thread that drives the step opens ranges;
+the loader's reading thread opens none, as its ranges would overlap that
+thread's in time.
 """
 
 from __future__ import annotations
